@@ -1,7 +1,8 @@
-"""DynODE-TPU: a TPU-native compartmental-ODE scenario engine in JAX.
+"""dynode_tpu: a compartmental-ODE scenario engine in JAX.
 
 A from-scratch rebuild of the capabilities of CDCgov/DynODE
-(reference: /root/reference/src/dynode/__init__.py:1-9) designed TPU-first:
+(reference: CDCgov/DynODE/src/dynode/__init__.py:1-9) built for wide
+ensembles and wide chain banks on an accelerator (an NVIDIA GPU):
 
 - The ODE engine (``dynode_tpu.ode``) compiles an entire adaptive solve into a
   single XLA program via a bounded, checkpointed ``lax.scan`` so it is
@@ -10,12 +11,13 @@ A from-scratch rebuild of the capabilities of CDCgov/DynODE
 - The inference engine (``dynode_tpu.infer``) is a self-contained numpyro-like
   probabilistic layer: distributions, effect handlers, iterative NUTS with
   windowed warmup adaptation, SVI with autoguides, and Predictive replay --
-  with chains run as a vectorized batch axis shardable over a TPU mesh.
+  with chains run as a vectorized batch axis shardable over a device mesh.
 - ``dynode_tpu.parallel`` owns device-mesh construction and sharding helpers
-  (chain/ensemble axes) -- the TPU-native counterpart of the reference's
+  (chain/ensemble axes) -- the counterpart of the reference's
   (nonexistent) distributed backend.
-- ``dynode_tpu.ops`` holds Pallas TPU kernels for the hot, fused
-  right-hand-side evaluations of large stratified models.
+- ``dynode_tpu.ops`` holds the whole-solve ensemble integrators: a Pallas
+  kernel (Triton route) that keeps every member's state on chip for the
+  whole solve, and the XLA ensemble solves of the production SEIP model.
 
 The public surface is a superset of the reference's top-level exports
 (reference: src/dynode/__init__.py) so model code ports with an import swap

@@ -2,7 +2,7 @@
 
 (reference: src/dynode/config/params.py:24-164). ``SolverParams`` points at
 the in-repo ODE engine instead of diffrax; ``step_budget`` is the one
-TPU-specific addition: it bounds the *compiled* scan length of an adaptive
+addition over the reference: it bounds the *compiled* scan length of an adaptive
 solve (see dynode_tpu/ode/integrate.py) independently of the ``max_steps``
 error cap the reference exposes.
 """
@@ -62,7 +62,7 @@ class SolverParams(BaseModel):
     )
     step_budget: Optional[PositiveInt] = Field(
         default=None,
-        description="TPU-specific: compiled scan length for adaptive solves "
+        description="Not in the reference: compiled scan length for adaptive solves "
         "(defaults to min(max_steps, 4096)). The solve is ONE bounded XLA "
         "program; iterations after completion are masked no-ops, so pick a "
         "budget ~1.5x the expected accepted+rejected step count for best "
@@ -70,7 +70,7 @@ class SolverParams(BaseModel):
     )
     steps_per_save: Optional[PositiveInt] = Field(
         default=None,
-        description="TPU-specific: per-save-interval step bound for the "
+        description="Not in the reference: per-save-interval step bound for the "
         "save-grid-bounded adaptive engine (uniform save grids only). "
         "Defaults to max(ceil(1.25 * step_budget / n_intervals) + 2, 6) -- "
         "headroom over the mean because adaptive step density is "
@@ -82,7 +82,7 @@ class SolverParams(BaseModel):
     )
     compensated_summation: bool = Field(
         default=False,
-        description="TPU-specific: Kahan-compensated (double-word) state "
+        description="Not in the reference: Kahan-compensated (double-word) state "
         "accumulation in the RK update. In f32 the accumulated roundoff of "
         "thousands of steps dominates tight tolerances; compensation "
         "removes the O(n_steps) term for ~1 extra add-chain per step, "

@@ -1,7 +1,7 @@
 """JAX-native probability distributions (no numpyro dependency).
 
 The reference delegates distributions to numpyro
-(reference: src/dynode/config/strains.py:8, infer/sample.py:11). DynODE-TPU
+(reference: src/dynode/config/strains.py:8, infer/sample.py:11). dynode_tpu
 ships its own minimal, fully jittable distribution library: every
 log-density/sampling path is a pure JAX function that fuses into the
 surrounding XLA program. (The SVI driver separately uses optax for its

@@ -16,7 +16,7 @@ from .transforms import Transform
 
 
 class Distribution:
-    """Base class for all DynODE-TPU distributions.
+    """Base class for all dynode_tpu distributions.
 
     Subclasses implement :meth:`sample` and :meth:`log_prob` as pure JAX
     functions of their (possibly batched) parameters, plus a ``support``

@@ -6,7 +6,7 @@ reference: examples/sir_infer_parameters.py:47-58) and for NUTS/SVI
 reparameterization onto unconstrained R^n via :func:`biject_to`.
 
 All forward/inverse/jacobian functions are elementwise pure-jnp -- they fuse
-into the surrounding XLA program (VPU ops on TPU).
+into the surrounding XLA program.
 """
 
 import jax.numpy as jnp

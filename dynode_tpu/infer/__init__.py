@@ -3,7 +3,7 @@
 Public surface covers the reference's ``dynode.infer``
 (reference: src/dynode/infer/__init__.py:3-19) plus the underlying engine
 pieces the reference imported from numpyro (MCMC/NUTS/SVI/Predictive/
-init strategies/autoguides), all implemented in-repo and TPU-first.
+init strategies/autoguides), all implemented in-repo for wide vectorized banks.
 """
 
 from . import diagnostics, handlers

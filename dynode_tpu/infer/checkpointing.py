@@ -8,7 +8,7 @@ here means observability -- named sites in the inference trace at chosen
 dates -- not solver-state resume (sampler state lives in
 ``InferenceProcess._inference_state`` for warm restarts).
 
-TPU-shaped implementation: the requested dates are resolved to save-grid
+Implementation: the requested dates are resolved to save-grid
 indices up front and all snapshots of one solve are taken as a single
 ``jnp.take`` gather along the time axis per compartment (one fused slice op
 under jit, instead of a python-level ``ys[idx][day]`` load per date x

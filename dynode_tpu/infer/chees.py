@@ -1,6 +1,6 @@
 """ChEES-HMC: jittered fixed-length HMC with cross-chain adaptation.
 
-TPU-first rationale. Vectorized NUTS banks run chains in lockstep, so every
+Rationale. Vectorized NUTS banks run chains in lockstep, so every
 transition costs the MAX tree size across the bank -- at 4096 chains the
 whole bank waits for its deepest tree every draw (see CLAUDE.md perf notes).
 ChEES-HMC (Hoffman, Radul & Sountsov, "An Adaptive-MCMC Scheme for Setting
@@ -12,7 +12,7 @@ maximizing the Change-in-the-Estimator-of-the-Expected-Square criterion
 
 whose gradient is estimated *across the chain bank* each iteration -- wide
 banks are not just tolerated but REQUIRED for the estimator, making this the
-natural sampler for the TPU regime where chains are vector lanes. Every
+natural sampler for the wide-bank regime where chains are a vector axis. Every
 chain takes exactly the same number of leapfrog steps per iteration
 (trajectory jittered by a shared Halton scalar to preserve ergodicity), so a
 bank transition is a dense lockstep program with zero padding waste, and the
@@ -25,7 +25,7 @@ single NUTS chain needs its whole warmup to reach.
 
 Reference parity note: the reference's inference surface is numpyro NUTS
 (/root/reference/src/dynode/infer/inference.py:149-162); ChEES is an
-addition for the wide-bank TPU regime, exposed through the same
+addition for the wide-bank regime, exposed through the same
 ``MCMC(kernel, ...)`` runner (infer/mcmc.py).
 """
 
@@ -491,8 +491,8 @@ def make_chees_parts(kernel: ChEES, pot_and_grad, D: int, dtype):
                     # the reference step size at refresh time is a transient
                     # dual-averaging iterate, so the shift pumps T
                     # multiplicatively at every window -- observed 15x
-                    # trajectory blow-up and a 5x ESS/s regression on the
-                    # multistrain bench. Adam re-converges T under the new
+                    # trajectory blow-up on the multistrain fit. Adam
+                    # re-converges T under the new
                     # metric instead.)
                     return (
                         state._replace(rng_key=key),

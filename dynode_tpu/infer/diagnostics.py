@@ -180,8 +180,8 @@ def summary(
             # and once the partial sum is ~2^23x the addend each add rounds
             # to a coarse grid -- a 4096x1600 bank's mean came out 1.034
             # for draws centered at 1.106 (6% systematic bias toward round
-            # numbers; the round-2 "posterior drifting toward the prior"
-            # tunnel-integrity scare reproduced bit-for-bit from this).
+            # numbers -- enough to look like a posterior drifting toward
+            # the prior).
             sub = np.asarray(
                 arr[(slice(None), slice(None)) + idx], dtype=np.float64
             )

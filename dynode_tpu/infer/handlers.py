@@ -353,7 +353,7 @@ class plate(Messenger):
     /root/reference/src/dynode/utils/utils.py:45-61).
 
     Data subsampling (``subsample_size < size``) is not implemented: the
-    reference never subsamples, and on TPU the full-data likelihood is the
+    reference never subsamples, and on an accelerator the full-data likelihood is the
     fast path (one fused reduction; gather-based minibatching would add
     host round-trips for no win at epi-model data sizes).
     """
@@ -364,7 +364,7 @@ class plate(Messenger):
         if subsample_size is not None and subsample_size != size:
             raise NotImplementedError(
                 "plate subsampling is not supported (the full-data "
-                "likelihood is the TPU fast path); use subsample_size=None"
+                "likelihood is the fast path); use subsample_size=None"
             )
         if dim is not None and dim >= 0:
             raise ValueError(f"plate dim must be negative, got {dim}")

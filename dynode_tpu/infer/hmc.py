@@ -1,6 +1,6 @@
 """Iterative multinomial NUTS with windowed warmup adaptation.
 
-A from-scratch, TPU-first No-U-Turn sampler equivalent to the numpyro NUTS
+A from-scratch, vectorization-first No-U-Turn sampler equivalent to the numpyro NUTS
 configuration the reference uses (dense mass matrix, multinomial sampling,
 target accept 0.8 -- reference: src/dynode/infer/inference.py:149-162):
 

@@ -9,7 +9,7 @@ and ``Predictive(model, guide=..., params=..., num_samples=...)``.
 
 Replays are vmapped over the draw axis -- one compiled program evaluates the
 model (including its ODE solve) for all draws in parallel, which is exactly
-the ensemble-parallel shape TPUs want.
+the ensemble-parallel shape accelerators want.
 """
 
 import contextlib
@@ -65,7 +65,7 @@ class Predictive:
         self.posterior_samples = posterior_samples
         self.return_sites = return_sites
         self.exclude_deterministic = exclude_deterministic
-        #: vmap all draws into one program (the TPU-shaped default) or,
+        #: vmap all draws into one program (the default) or,
         #: with parallel=False, run draws sequentially via lax.map --
         #: same results, O(1 draw) peak memory (numpyro's semantics)
         self.parallel = parallel

@@ -342,7 +342,7 @@ class SVI:
     ) -> SVIMultiStartResult:
         """Run ``num_starts`` independent SVI optimizations in ONE program.
 
-        TPU-scale SVI: the whole bank (per-start jittered inits, the full
+        Bank-scale SVI: the whole bank (per-start jittered inits, the full
         Adam scan, and a multi-particle final-ELBO evaluation) is a single
         jitted ``vmap`` over the start axis -- ELBO steps across starts
         fill the chip the way chain width does for MCMC. Pass ``mesh=`` to
@@ -509,8 +509,8 @@ def chees_warm_start_from_guide(
     (Zhang et al. 2022: cheap variational fit -> posterior-shaped inits +
     metric for the exact sampler).
 
-    A multi-start SVI bank costs milliseconds on TPU (bench:
-    ``svi_elbo_steps_per_sec``), and its winning guide hands the sampler
+    A multi-start SVI bank is one compiled program (``bench_nuts.py``
+    reports ``svi_elbo_steps_per_sec``), and its winning guide hands the sampler
     everything warmup exists to learn: chain positions are drawn from the
     guide, the (inverse) mass matrix is the guide covariance — so the
     mass-normalized posterior is ~isotropic and the default trajectory

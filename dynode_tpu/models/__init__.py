@@ -1,11 +1,11 @@
 """Prebuilt model families: configs, initializers, and fused RHS functions.
 
 The reference keeps its models in examples/ and a private DynODE-Models repo
-(reference: CHANGELOG.md:120-122); DynODE-TPU additionally ships the common
+(reference: CHANGELOG.md:120-122); dynode_tpu additionally ships the common
 compartmental families as library code so benchmarks, tests, and users share
 one well-optimized implementation. All RHS functions are written as batched
 tensor ops (einsum over age/strain axes) rather than per-strain Python loops
-so they vectorize over ensembles and map onto the TPU VPU/MXU cleanly.
+so they vectorize over ensembles and compile to a few fused kernels.
 """
 
 from .seirs import (

@@ -4,16 +4,19 @@ Workload parity with the reference's
 examples/seirs_multi_strain_age_stratified.py (same compartments s/e/i/r/c,
 same defaults), but the RHS is written as one batched einsum over the
 (age, strain) tensor instead of a per-strain Python loop -- the whole
-force-of-infection computation is a single ``C @ (i/N)`` contraction that
-XLA maps onto the MXU when the ensemble axis is batched in front.
+force-of-infection computation is a single ``C @ (i/N)`` contraction. The
+rows form at the end of this module feeds the whole-solve ensemble
+integrator (``ops.ensemble_solve_kernel``).
 """
 
+import dataclasses
 from datetime import date
 from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..config import (
     Bin,
@@ -51,9 +54,9 @@ def multistrain_ode(t, state: CompartmentState, p: MultiStrainParams):
     s, e, i, r, c = state
     n_age = s + e.sum(axis=-1) + i.sum(axis=-1) + r.sum(axis=-1)
     infectious_frac = i / n_age[:, None]  # (A, K)
-    # full-f32 contraction: TPU matmuls default to bf16 MXU passes, a
-    # measured ~2e-3 relative drift on the SEIP path (probes/probe_seip_kernel3.py);
-    # these A x A contractions are tiny, so HIGHEST costs nothing
+    # full-f32 contraction: on a GPU an f32 matmul may run in TF32 (about
+    # three decimal digits) unless a precision is set; these A x A
+    # contractions are tiny, so HIGHEST costs nothing
     foi = p.beta[None, :] * jnp.matmul(
         p.contact_matrix, infectious_frac, precision=jax.lax.Precision.HIGHEST
     )  # (A, K)
@@ -171,12 +174,10 @@ def multistrain_initial_state(config: SimulationConfig) -> CompartmentState:
 
 
 # ---------------------------------------------------------------------------
-# lane-major ensemble variant: batch axis LAST. NOTE (round-2 honest
-# timing): batch-leading jit(vmap) is FASTER for this small-state model --
-# XLA flattens its elementwise ops across the batch; the batch-last layout
-# only wins on scatter-heavy models (see simulation.ensemble_rhs). Kept as
-# the template for ensemble_rhs equivalence tests and the NUTS
-# batched-potential path.
+# lane-major ensemble variant: batch axis LAST. Which layout is faster
+# depends on the model and the device (bench.py measures both; see
+# simulation.ensemble_rhs). Kept as the template for ensemble_rhs
+# equivalence tests and the NUTS batched-potential path.
 # ---------------------------------------------------------------------------
 
 
@@ -217,6 +218,132 @@ def multistrain_ode_ensemble(t, state: CompartmentState, p: MultiStrainParams):
     return (ds, de, di, dr, new_inf)
 
 
+# ---------------------------------------------------------------------------
+# rows form for the whole-solve ensemble integrator (ops.ensemble_solve_kernel):
+# the state is R = A + 4*A*K rows (s, then e/i/r/c in (age, strain) order),
+# each row one (B,) vector over the members; the parameters are 4*K rows
+# (beta, sigma, gamma, omega per strain).
+# ---------------------------------------------------------------------------
+
+
+def n_state_rows(n_age: int = 2, n_strain: int = 3) -> int:
+    """Rows of the packed multistrain state: s (A) + e/i/r/c (A*K each)."""
+    return n_age + 4 * n_age * n_strain
+
+
+def rhs_rows(y, contact, beta, sigma, gamma, omega, n_age, n_strain):
+    """d/dt of the packed state on lists of (B,) rows.
+
+    ``beta``/... are lists of K (B,) rows; ``contact`` is a nested tuple of
+    Python floats (a kernel must not capture traced arrays). Same model as
+    :func:`multistrain_ode`.
+    """
+    ak = n_age * n_strain
+    s = [y[a] for a in range(n_age)]
+    e = [y[n_age + idx] for idx in range(ak)]
+    i = [y[n_age + ak + idx] for idx in range(ak)]
+    r = [y[n_age + 2 * ak + idx] for idx in range(ak)]
+
+    inv_n = []
+    for a in range(n_age):
+        tot = s[a]
+        for k in range(n_strain):
+            idx = a * n_strain + k
+            tot = tot + e[idx] + i[idx] + r[idx]
+        inv_n.append(1.0 / tot)
+
+    d = [None] * n_state_rows(n_age, n_strain)
+    ds = [jnp.zeros_like(s[0]) for _ in range(n_age)]
+    for a in range(n_age):
+        for k in range(n_strain):
+            idx = a * n_strain + k
+            mixed = jnp.zeros_like(s[0])
+            for b in range(n_age):
+                mixed = mixed + contact[a][b] * i[b * n_strain + k] * inv_n[b]
+            new_inf = beta[k] * mixed * s[a]
+            e_out = sigma[k] * e[idx]
+            i_out = gamma[k] * i[idx]
+            r_out = omega[k] * r[idx]
+            ds[a] = ds[a] - new_inf + r_out
+            d[n_age + idx] = new_inf - e_out  # de
+            d[n_age + ak + idx] = e_out - i_out  # di
+            d[n_age + 2 * ak + idx] = i_out - r_out  # dr
+            d[n_age + 3 * ak + idx] = new_inf  # dc
+    for a in range(n_age):
+        d[a] = ds[a]
+    return d
+
+
+@dataclasses.dataclass(frozen=True)
+class MultistrainRowsRHS:
+    """The multistrain model as a rows-RHS ``rhs(y, p, t)``.
+
+    Hashable by value, so equal models share one compiled whole-solve
+    program. ``p`` holds the :func:`pack_params` rows.
+    """
+
+    contact: tuple
+    n_age: int = 2
+    n_strain: int = 3
+
+    @classmethod
+    def from_params(cls, params: MultiStrainParams):
+        """Build from a :class:`MultiStrainParams` (host-fetches contact)."""
+        contact = np.asarray(jax.device_get(params.contact_matrix))
+        return cls(
+            contact=tuple(tuple(float(v) for v in row) for row in contact),
+            n_age=contact.shape[0],
+            n_strain=int(np.shape(params.beta)[-1]),
+        )
+
+    def __call__(self, y, p, t):
+        k = self.n_strain
+        return rhs_rows(
+            y, self.contact, p[:k], p[k:2 * k], p[2 * k:3 * k],
+            p[3 * k:4 * k], self.n_age, k,
+        )
+
+
+def pack_state(
+    y0: CompartmentState, batch: int, n_age: int = 2, n_strain: int = 3
+) -> jnp.ndarray:
+    """(s (A,), e/i/r/c (A,K)) -> packed (R, B) with the state broadcast."""
+    flat = jnp.concatenate([jnp.reshape(c, -1) for c in y0])
+    d = n_state_rows(n_age, n_strain)
+    if flat.shape[0] != d:
+        raise ValueError(
+            f"state does not match {n_age} ages x {n_strain} strains"
+        )
+    return jnp.broadcast_to(flat[:, None], (d, batch)).astype(jnp.float32)
+
+
+def pack_params(beta, sigma, gamma, omega, batch: int, n_strain: int = 3):
+    """Per-strain rates (each (K,) or (B, K)) -> packed (4*K, B) rows."""
+
+    def rows(x):
+        x = jnp.asarray(x, dtype=jnp.float32)
+        if x.ndim == 1:
+            x = jnp.broadcast_to(x[None, :], (batch, n_strain))
+        return x.T  # (K, B)
+
+    return jnp.concatenate([rows(beta), rows(sigma), rows(gamma), rows(omega)])
+
+
+def unpack_saves(saves: jnp.ndarray, n_age: int = 2, n_strain: int = 3):
+    """(T, R, B) packed saves -> (s, e, i, r, c), each (T, B, ...)."""
+    T, _, B = saves.shape
+    s = saves[:, :n_age, :].transpose(0, 2, 1)  # (T, B, A)
+    blocks = []
+    off = n_age
+    ak = n_age * n_strain
+    for _ in range(4):
+        blk = saves[:, off : off + ak, :]
+        blocks.append(blk.reshape(T, n_age, n_strain, B).transpose(0, 3, 1, 2))
+        off += ak
+    e, i, r, c = blocks
+    return s, e, i, r, c
+
+
 __all__ = [
     "MultiStrainParams",
     "multistrain_ode",
@@ -224,4 +351,10 @@ __all__ = [
     "multistrain_config",
     "multistrain_odeparams",
     "multistrain_initial_state",
+    "MultistrainRowsRHS",
+    "n_state_rows",
+    "pack_params",
+    "pack_state",
+    "rhs_rows",
+    "unpack_saves",
 ]

@@ -21,7 +21,7 @@ DynODE-Models repo, CHANGELOG.md:120-122):
 - sinusoidal seasonal transmission forcing
 
 Everything is batched tensor algebra (einsums over the 4-D/5-D state), so
-the RHS vectorizes over ensembles and maps cleanly onto TPU vector units;
+the RHS vectorizes over ensembles and fuses into a few XLA kernels;
 the eta scatter is a precomputed one-hot contraction, not a gather loop.
 """
 
@@ -90,10 +90,10 @@ class SEIPParams(AbstractODEParams):
     seasonal_vaccination: bool = False
 
 
-# full-f32 contractions: TPU einsum/matmul default to bf16 MXU passes --
-# measured ~2e-3 relative drift over 10 days vs an f64 oracle, while the
-# exact-f32 Pallas kernel sits at ~3e-7 (probes/probe_seip_kernel3.py). These
-# contractions are tiny (4x4-ish), so HIGHEST costs nothing measurable.
+# full-f32 contractions: on a GPU an f32 einsum/matmul may run in TF32
+# (about three decimal digits) unless a precision is set, and that rounding
+# accumulates over a solve. These contractions are tiny (4x4-ish), so
+# HIGHEST costs nothing measurable.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -108,9 +108,8 @@ def seip_ode(t, state: CompartmentState, p: SEIPParams):
 
     Compartment-flow increments are built as zero-padded full-shape adds
     (pure dataflow) rather than ``.at[slice].add`` scatters: XLA's scatter
-    lowering materializes operand copies on TPU, measured 2.4x slower at
-    ensemble width (see seip_ode_scatter, kept as the equivalence
-    reference, and bench_seip.py).
+    lowering can materialize operand copies (see seip_ode_scatter, kept as
+    the equivalence reference).
     """
     S, E, I, C = state  # S: (A,J,K,M); E/I/C: (A,J,K,L)
     K = S.shape[2]
@@ -558,11 +557,10 @@ def seip_initial_state(config: SimulationConfig) -> CompartmentState:
 # lane-major ensemble variant: batch axis LAST
 # ---------------------------------------------------------------------------
 # vmap-style batch-leading layouts put SEIP's tiny trailing dims (wane=4,
-# strain=2) on the TPU's (sublane, lane) tiles -- <1% vector-unit
-# utilization. Writing the ensemble with an explicit trailing batch axis puts
-# the 1000+-wide ensemble on the lane dimension instead, the same layout the
-# Pallas kernels use, but expressed in plain XLA (measured ~45x faster for
-# 1024-wide SEIP ensembles than the vmapped batch-leading form).
+# strain=2) on the innermost (vectorized) dimensions -- a poorly filled
+# vector unit. Writing the ensemble with an explicit trailing batch axis puts
+# the 1000+-wide ensemble on the innermost, contiguous dimension instead,
+# expressed in plain XLA (ops.seip_ensemble_solve runs this form).
 
 
 def seip_ensemble_state(y0: CompartmentState, batch: int) -> CompartmentState:
@@ -587,7 +585,7 @@ def seip_ensemble_params(base: SEIPParams, beta_scales: jnp.ndarray) -> SEIPPara
 def seip_ode_ensemble_scatter(t, state: CompartmentState, p: SEIPParams):
     """``.at[slice].add`` form of :func:`seip_ode_ensemble` (equivalence
     reference + scatter-lowering benchmark; the pad-based default below
-    measured 2.4x faster on TPU).
+    avoids the scatter lowering).
 
     state: S (A,J,K,M,B); E/I/C (A,J,K,L,B). ``p.beta`` is (L, B); all other
     parameters are shared across the ensemble.
@@ -672,9 +670,8 @@ def seip_ode_ensemble(t, state: CompartmentState, p: SEIPParams):
     state: S (A,J,K,M,B); E/I/C (A,J,K,L,B). ``p.beta`` is (L, B); all
     other parameters are shared across the ensemble. Every compartment-flow
     increment is a zero-padded full-shape add rather than ``.at[].add``:
-    XLA's scatter lowering materializes operand copies on TPU, while pads
-    are pure dataflow that fuses into the elementwise graph — measured
-    13.1k vs 5.5k traj/s at B=1024 (bench_seip.py). Equivalence vs the
+    XLA's scatter lowering can materialize operand copies, while pads
+    are pure dataflow that fuses into the elementwise graph. Equivalence vs the
     scatter form is pinned in tests/test_dynamics/test_seip.py.
     """
     S, E, I, C = state

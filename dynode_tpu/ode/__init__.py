@@ -1,4 +1,4 @@
-"""TPU-native ODE engine: explicit Runge-Kutta solvers in one XLA program.
+"""ODE engine: explicit Runge-Kutta solvers in one XLA program.
 
 In-repo replacement for the reference's diffrax dependency
 (reference: src/dynode/simulation/odes.py:8-18). Design goals:

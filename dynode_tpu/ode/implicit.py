@@ -6,7 +6,7 @@ ones -- in ``SolverParams.solver_method``
 the in-repo stiff capability: L-stable singly-diagonally-implicit RK
 schemes driven by a simplified Newton iteration.
 
-TPU-first design decisions:
+Design decisions:
 
 - **One Jacobian per step, one LU per distinct diagonal**: simplified
   Newton evaluates ``J = df/dy`` once at the step start (``jax.jacfwd`` --

@@ -1,7 +1,7 @@
 """The bounded-scan integrator: one differentiable XLA program per solve.
 
 Replaces ``diffrax.diffeqsolve`` (reference: src/dynode/simulation/odes.py:133-144)
-with a TPU-first design:
+with a design for compiled, vectorized solves:
 
 - **Bounded two-level scan**: the adaptive while-loop becomes a
   ``lax.scan`` over ``n_chunks`` chunks of ``K`` steps each (``K ~
@@ -24,7 +24,7 @@ with a TPU-first design:
   order, preserves linear invariants (mass conservation) exactly, and
   reproduces segment endpoints bitwise.
 - **Kahan-compensated time accumulation** keeps the t grid accurate in
-  float32 on TPU without requiring x64.
+  float32 without requiring x64.
 - **Internally jitted**: the core is a module-level jit with hashable static
   config (RHS identity, solver, controller, budget), so repeated solves --
   and solves nested inside NUTS/vmap/pjit -- hit the compile cache.
@@ -363,9 +363,8 @@ def _solve_adaptive_grid(
 
     The round-2 two-phase design (:func:`_solve`) emits every step's full
     state into a ``(budget, state)`` segment buffer; at ensemble width that
-    HBM write traffic alone (~state x width bytes per step) flattens
-    throughput (measured: width-flat ~21k traj/s vs 628k for the
-    constant-step direct path on the multistrain workload, BENCH_r02).
+    device-memory write traffic alone (~state x width bytes per step)
+    flattens throughput as the ensemble widens.
 
     This path restructures one adaptive solve as an outer scan over save
     INTERVALS, each running ``k_per_interval`` bounded PID steps whose dt is

@@ -1,14 +1,15 @@
-"""Pallas TPU kernels for the hot compute paths.
+"""Whole-solve ensemble integrators.
 
-The flagship kernel integrates an entire multi-strain SEIRS ensemble *inside
-one Pallas program*: the packed state stays resident in VMEM across every RK
-stage of every time step (zero HBM round-trips on the hot loop), with daily
-saves DMA'd out asynchronously. The ensemble axis rides the TPU lane
-dimension so all compartment algebra is dense VPU work.
+``generic_pallas`` integrates an ensemble of any small-state model written
+in the rows idiom inside one Pallas program per block of members: the
+state stays on chip for every RK stage of every step, and device memory
+sees only the save grid. :func:`kernel_route` is the one place that picks
+the compiled Triton kernel (GPU) or the ``lax`` reference (CPU).
 
-``generic_pallas`` (round 4) generalizes that design to ANY small-state
-model: supply the RHS in the lane-major rows idiom and get the same
-whole-solve-in-VMEM execution without writing Pallas.
+``seip`` solves the production SEIP model's ensembles with XLA: at 640
+floats per member its working set does not fit one GPU thread's registers.
+
+``sharded`` spreads either over the member axis of a device mesh.
 """
 
 from .generic_pallas import (
@@ -16,17 +17,12 @@ from .generic_pallas import (
     ensemble_solve_kernel_adaptive,
     ensemble_solve_kernel_adaptive_reference,
     ensemble_solve_kernel_reference,
+    kernel_route,
+    launch_config,
     pack_rows,
     unpack_rows,
 )
-from .multistrain_pallas import (
-    ensemble_solve_reference,
-    ensemble_solve_tsit5,
-    pack_params,
-    pack_state,
-    pick_block_b,
-    unpack_saves,
-)
+from .seip import seip_ensemble_solve, seip_ensemble_solve_adaptive
 from .sharded import (
     ensemble_solve_kernel_adaptive_sharded,
     ensemble_solve_kernel_sharded,
@@ -37,18 +33,16 @@ from .sharded import (
 __all__ = [
     "ensemble_solve_kernel_sharded",
     "ensemble_solve_kernel_adaptive_sharded",
+    "seip_ensemble_solve",
+    "seip_ensemble_solve_adaptive",
     "seip_ensemble_solve_sharded",
     "seip_ensemble_solve_adaptive_sharded",
-    "ensemble_solve_tsit5",
-    "ensemble_solve_reference",
     "ensemble_solve_kernel",
     "ensemble_solve_kernel_adaptive",
     "ensemble_solve_kernel_adaptive_reference",
     "ensemble_solve_kernel_reference",
+    "kernel_route",
+    "launch_config",
     "pack_rows",
     "unpack_rows",
-    "pack_state",
-    "pack_params",
-    "pick_block_b",
-    "unpack_saves",
 ]

@@ -1,48 +1,39 @@
-"""Generic whole-solve-in-VMEM ensemble kernel: bring your own RHS.
+"""Whole-solve ensemble integrator for a user rows-RHS.
 
-The round-3/4 hand kernels (``multistrain_pallas``, ``seip_pallas``) proved
-the layout that wins on TPU for wide ODE ensembles: **lane-major rows** --
-each ensemble member occupies one vector lane for the entire solve, state
-rows live in VMEM registers across all RK stages, and HBM is touched only
-for the save grid. This module generalizes that design to ANY small-state
-model: the user supplies the RHS in the measured-fast *rows idiom* and gets
-the whole-solve kernel (1.2-1.9M traj/s class on the 26-row multistrain
-workload at B>=80k, vs ~0.5M for XLA's best batch-leading layout) without
-writing a line of Pallas.
+Each ensemble member keeps its state on chip for the entire solve: one
+Pallas program (on the ``backend="triton"`` route) owns a power-of-two
+block of members, holds every state row as a register vector, steps
+through time with a ``fori_loop`` inside the kernel, and writes only the
+save grid to device memory. XLA's ``lax.scan`` over the same math launches
+kernels at every step and sends the state through device memory at every
+stage; keeping it resident is what the kernel is for.
 
-The rows contract (the performance-critical part -- both hand kernels are
-written this way):
+The rows contract:
 
     def rhs(y: list[Array], p: list[Array], t: Array) -> list[Array]
 
-``y`` is a list of R state rows, each a ``(block,)`` f32 lane vector; ``p``
-a list of P parameter rows; ``t`` a scalar. Structure dimensions (ages,
-strains, compartments) are *Python loops over rows*; only the ensemble
-axis is vectorized. This is exactly the multistrain kernel's ``_rhs_rows``
-shape (multistrain_pallas.py) and is what Mosaic lowers to clean
-full-width VPU ops -- whole-tile 2-D formulations measured *slower* (see
-docs/ops.md "Measured kernel-vs-XLA reality" lesson 2). Two constraints
-inherited from Mosaic:
+``y`` is a list of R state rows, each a ``(block,)`` f32 vector over the
+members; ``p`` a list of P parameter rows; ``t`` a scalar. Structure
+dimensions (ages, strains, compartments) are *Python loops over rows*;
+only the ensemble axis is vectorized (``models.multistrain.MultistrainRowsRHS``
+is a complete example). Two constraints come from tracing the RHS into a
+kernel:
 
-- the RHS must not capture traced *arrays* from the closure (scalars are
-  fine); per-member or shared array parameters go in ``p_rows``,
+- the RHS must not capture traced *arrays* from the closure (Python
+  scalars are fine); per-member or shared array parameters go in
+  ``p_rows``,
 - no data-dependent Python control flow (it is traced once per stage).
+
+Which implementation runs is decided in one place, :func:`kernel_route`:
+the compiled Triton kernel on a GPU, the ``lax`` reference (the same math
+as one ``lax.scan``) on the CPU, and an error anywhere else. Tests run the
+kernel on the CPU with ``interpret=True``.
 
 Reference parity: this replaces the reference's diffrax ``diffeqsolve``
 constant-step path for ensemble workloads
-(/root/reference/src/dynode/simulation/odes.py:133); the adaptive default
-lives in ``dynode_tpu.ode`` and ``seip_pallas``'s lockstep controller.
-
-On non-TPU backends ``ensemble_solve_kernel`` transparently falls back to
-``ensemble_solve_kernel_reference`` -- the identical math as one
-``lax.scan`` -- which is also the interpret-mode equivalence oracle in
-``tests/test_ops/test_generic_pallas.py``.
-
-``ensemble_solve_kernel_adaptive`` is the adaptive (lockstep-dt) variant:
-embedded BS3(2)/Tsit5(4) with the SEIP adaptive kernel's block-shared
-I-controller, save-point clamping, per-interval attempt budgets, bf16
-save staging, and pipelined save DMAs -- covering the reference's DEFAULT
-(adaptive) solve mode for any rows-RHS model.
+(CDCgov/DynODE/src/dynode/simulation/odes.py:133);
+``ensemble_solve_kernel_adaptive`` covers its DEFAULT (adaptive) solve
+mode with a per-block lockstep controller.
 """
 
 from __future__ import annotations
@@ -54,21 +45,22 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..ode.solvers import Bosh3, Tsit5
-from .multistrain_pallas import pick_block_b
 
 __all__ = [
     "ensemble_solve_kernel",
     "ensemble_solve_kernel_adaptive",
     "ensemble_solve_kernel_adaptive_reference",
     "ensemble_solve_kernel_reference",
+    "kernel_route",
+    "launch_config",
     "pack_rows",
     "unpack_rows",
 ]
 
-# classic RK4 (the SEIP kernel's scheme: diagonal tableau, 4 live groups)
+# classic RK4 (diagonal tableau)
 _RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
 _RK4_B = (1 / 6, 1 / 3, 1 / 3, 1 / 6)
 _RK4_C = (0.0, 0.5, 0.5, 1.0)
@@ -84,8 +76,8 @@ _METHODS = {
 
 #: adaptive method -> (a, b, e, c, n_stages, err_order); both are FSAL
 #: pairs (last stage = f(t+dt, y_new), b[last] == 0, feeds only the
-#: embedded error). bosh3 is the default: 4 RHS evals per attempt -- the
-#: same trade the SEIP adaptive kernel measured best (ops/seip_pallas.py).
+#: embedded error). bosh3 is the default: 3 RHS evals per steady-state
+#: attempt with the FSAL carry.
 _ADAPTIVE_METHODS = {
     "tsit5": (Tsit5.a, Tsit5.b, Tsit5.e,
               tuple(float(x) for x in Tsit5.c), 7, float(Tsit5.err_order)),
@@ -94,8 +86,65 @@ _ADAPTIVE_METHODS = {
 }
 
 
-def _pad8(n: int) -> int:
-    return -(-n // 8) * 8
+# ---------------------------------------------------------------------------
+# the selection point and the launch rule
+# ---------------------------------------------------------------------------
+
+
+def kernel_route(platform: str | None = None) -> str:
+    """How an ``ops`` whole-solve entry point runs on ``platform``.
+
+    ``"triton"`` (the compiled Pallas kernel) on ``"gpu"``; ``"lax"`` (the
+    reference, which is the CPU implementation) on ``"cpu"``. Any other
+    platform is an error: there is no silent fallback. ``platform``
+    defaults to ``jax.default_backend()``.
+    """
+    platform = jax.default_backend() if platform is None else platform
+    if platform == "gpu":
+        return "triton"
+    if platform == "cpu":
+        return "lax"
+    raise ValueError(
+        f"no whole-solve route for platform {platform!r}; "
+        "supported: 'gpu' (Triton kernel), 'cpu' (lax)"
+    )
+
+
+#: members per Pallas program and warps per program. Each member is one
+#: thread: a program of ``block_b`` members runs ``block_b // 32`` warps, so
+#: every state row is one register per thread and no thread holds two
+#: members' stages (Tsit5 on 26 rows already keeps ~240 floats live).
+DEFAULT_BLOCK_B = 128
+
+
+def launch_config(batch: int, block_b: int | None = None) -> tuple[int, int]:
+    """``(block_b, num_warps)`` for a ``batch``-wide solve.
+
+    ``block_b`` must be a power of two (Triton's block rule); None picks
+    :data:`DEFAULT_BLOCK_B`, or the next power of two at or above ``batch``
+    when the whole ensemble is smaller than one block. A batch that is not
+    a multiple of ``block_b`` is padded by the entry points.
+    """
+    if block_b is None:
+        block_b = min(DEFAULT_BLOCK_B, max(32, 1 << (batch - 1).bit_length()))
+    block_b = int(block_b)
+    if block_b < 1 or block_b & (block_b - 1):
+        raise ValueError(f"block_b must be a power of two, got {block_b}")
+    return block_b, max(1, min(8, block_b // 32))
+
+
+def _pad_members(x, padded: int):
+    """Pad the member (last) axis to ``padded`` by repeating the last member.
+
+    A copy of an existing member leaves every block's max error norm -- and
+    so the adaptive controller's decisions -- unchanged.
+    """
+    extra = padded - x.shape[-1]
+    if not extra:
+        return x
+    return jnp.concatenate(
+        [x, jnp.broadcast_to(x[..., -1:], (*x.shape[:-1], extra))], axis=-1
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +153,7 @@ def _pad8(n: int) -> int:
 
 
 def pack_rows(leaves: Sequence[jnp.ndarray], batch: int):
-    """Lane-major leaves ``(*struct, B)`` -> packed ``(R, B)`` + spec.
+    """Member-last leaves ``(*struct, B)`` -> packed ``(R, B)`` + spec.
 
     Leaves with no batch axis (shared across members) are broadcast.
     Returns ``(packed, spec)`` where ``spec`` is the per-leaf struct-shape
@@ -164,41 +213,26 @@ def _rk_step_rows(rhs, y, p, t, dt, a, b, c, n_stages):
     ]
 
 
-def _rk_embedded_step_rows(rhs, y, p, t, dt, a, b, e, c, n_stages, f0=None):
+def _rk_embedded_step_rows(rhs, y, p, t, dt, a, b, e, c, n_stages, f0):
     """One embedded FSAL RK attempt on rows: (y_new, err_rows, k_last).
 
-    The last stage is evaluated at ``y_new`` (FSAL structure shared by both
-    adaptive tableaus; ``b[last] == 0``) so the advanced solution costs
-    ``n_stages - 1`` stage-input constructions.
-
-    ``f0``: optional precomputed first stage ``f(t, y)`` -- the First Same
-    As Last property: after an ACCEPT the returned ``k_last`` (evaluated
-    at ``y_new``) IS the next attempt's first stage, and after a REJECT
-    ``(t, y)`` are unchanged so the old first stage is still exact.
-    Reusing it cuts the steady-state cost from 4 to 3 RHS evals per BS3
-    attempt (callers maintain the f0 carry).
+    ``f0`` is the first stage ``f(t, y)``, carried by the caller: after an
+    ACCEPT the returned ``k_last`` (evaluated at ``y_new``) IS the next
+    attempt's first stage, and after a REJECT ``(t, y)`` are unchanged so
+    the old first stage is still exact (First Same As Last). A steady-state
+    BS3 attempt therefore costs 3 RHS evaluations, not 4.
     """
     n_rows = len(y)
     n_sub = n_stages - 1
-    ks = []
-    for stage in range(n_sub):
-        if stage == 0:
-            if f0 is not None:
-                ks.append(list(f0))
-                continue
-            y_stage = y
-        else:
-            coeffs = a[stage - 1]
-            y_stage = [
-                y[r]
-                + dt
-                * sum(
-                    coeffs[j] * ks[j][r]
-                    for j in range(stage)
-                    if coeffs[j] != 0.0
-                )
-                for r in range(n_rows)
-            ]
+    ks = [list(f0)]
+    for stage in range(1, n_sub):
+        coeffs = a[stage - 1]
+        y_stage = [
+            y[r]
+            + dt
+            * sum(coeffs[j] * ks[j][r] for j in range(stage) if coeffs[j] != 0.0)
+            for r in range(n_rows)
+        ]
         ks.append(rhs(y_stage, p, t + c[stage] * dt))
     y_new = [
         y[r] + dt * sum(b[j] * ks[j][r] for j in range(n_sub) if b[j] != 0.0)
@@ -228,70 +262,96 @@ def _check_save_rows(save_rows, n_rows):
     return rows
 
 
+def _check_rows(y0_rows, p_rows):
+    y0_rows = jnp.asarray(y0_rows, jnp.float32)
+    if y0_rows.ndim != 2:
+        raise ValueError(f"y0_rows must be (R, B), got {y0_rows.shape}")
+    if p_rows is None:
+        p_rows = jnp.zeros((0, y0_rows.shape[1]), jnp.float32)
+    return y0_rows, jnp.asarray(p_rows, jnp.float32)
+
+
+def _pallas(kernel, y0_rows, p_rows, out_shapes, out_specs, *, block_b,
+            num_warps, interpret):
+    """Launch ``kernel`` over member blocks on the Triton route."""
+    n_rows, batch = y0_rows.shape
+    # a program loads parameter rows one at a time; an empty parameter
+    # array still needs a (dummy) row to have a block
+    if p_rows.shape[0] == 0:
+        p_rows = jnp.zeros((1, batch), jnp.float32)
+    return pl.pallas_call(
+        kernel,
+        out_shape=out_shapes,
+        grid=(batch // block_b,),
+        in_specs=[
+            pl.BlockSpec((n_rows, block_b), lambda i: (0, i)),
+            pl.BlockSpec((p_rows.shape[0], block_b), lambda i: (0, i)),
+        ],
+        out_specs=out_specs,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps),
+        interpret=interpret,
+        name="dynode_whole_solve",
+    )(y0_rows, p_rows)
+
+
 # ---------------------------------------------------------------------------
-# Pallas kernel
+# constant step
 # ---------------------------------------------------------------------------
 
 
 def _solve_kernel(
-    y_ref,
-    p_ref,
-    out_ref,
-    scratch,
-    sem,
-    *,
-    rhs,
-    n_rows: int,
-    n_params: int,
-    dt: float,
-    t0: float,
-    n_steps: int,
-    save_stride: int,
-    tableau,
-    save_rows,
+    y_ref, p_ref, out_ref, *, rhs, n_rows, n_params, dt, t0, n_outer,
+    save_stride, tableau, save_rows,
 ):
     a, b, c, n_stages = tableau
-    s_pad = scratch.shape[0]
-    i = pl.program_id(0)
-    block_b = scratch.shape[1]
     p = [p_ref[r, :] for r in range(n_params)]
 
-    def _dma(slot):
-        return pltpu.make_async_copy(
-            scratch,
-            out_ref.at[slot, :, pl.ds(i * block_b, block_b)],
-            sem,
-        )
-
     def save(slot, rows):
-        # pipelined: stage (casting to the save dtype when narrow), start
-        # the DMA, defer the wait until just before the staging tile is
-        # next overwritten -- a full save_stride of RK steps later
         for j, r in enumerate(save_rows):
-            scratch[j, :] = rows[r].astype(scratch.dtype)
-        _dma(slot).start()
+            pltriton.store(out_ref.at[slot, j, :], rows[r].astype(out_ref.dtype))
 
-    for j in range(len(save_rows), s_pad):  # zero padding rows once
-        scratch[j, :] = jnp.zeros_like(scratch[j, :])
-    y = [y_ref[r, :] for r in range(n_rows)]
-    save(0, y)
-
-    # rolled time loop (unrolling n_steps explodes compile time); stages
-    # unrolled inside; predicated save on the stride
-    def body(step, rows):
-        t = t0 + (step - 1).astype(jnp.float32) * dt
+    def inner(_, carry):
+        rows, t = carry
         rows = _rk_step_rows(rhs, list(rows), p, t, dt, a, b, c, n_stages)
+        return tuple(rows), t + dt
 
-        @pl.when(step % save_stride == 0)
-        def _():
-            slot = step // save_stride
-            _dma(slot - 1).wait()
-            save(slot, rows)
+    def outer(slot, carry):
+        carry = jax.lax.fori_loop(0, save_stride, inner, carry)
+        save(slot, carry[0])
+        return carry
 
-        return tuple(rows)
+    y = tuple(y_ref[r, :] for r in range(n_rows))
+    save(0, y)
+    jax.lax.fori_loop(1, n_outer + 1, outer, (y, jnp.float32(t0)))
 
-    jax.lax.fori_loop(1, n_steps + 1, body, tuple(y))
-    _dma(n_steps // save_stride).wait()
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("rhs", "dt", "n_steps", "save_stride", "block_b",
+                     "num_warps", "method", "t0", "save_dtype", "save_rows",
+                     "interpret"),
+)
+def _solve_pallas(
+    y0_rows, p_rows, *, rhs, dt, n_steps, save_stride, block_b, num_warps,
+    method, t0, save_dtype, save_rows, interpret=False,
+):
+    n_rows, batch = y0_rows.shape
+    padded = -(-batch // block_b) * block_b
+    n_outer = n_steps // save_stride
+    kernel = functools.partial(
+        _solve_kernel, rhs=rhs, n_rows=n_rows, n_params=p_rows.shape[0],
+        dt=dt, t0=t0, n_outer=n_outer, save_stride=save_stride,
+        tableau=_METHODS[method], save_rows=save_rows,
+    )
+    n_save = len(save_rows)
+    out = _pallas(
+        kernel, _pad_members(y0_rows, padded), _pad_members(p_rows, padded),
+        jax.ShapeDtypeStruct((n_outer + 1, n_save, padded), save_dtype),
+        pl.BlockSpec((n_outer + 1, n_save, block_b), lambda i: (0, 0, i)),
+        block_b=block_b, num_warps=num_warps, interpret=interpret,
+    )
+    return out if padded == batch else out[..., :batch]
 
 
 def ensemble_solve_kernel(
@@ -307,52 +367,41 @@ def ensemble_solve_kernel(
     t0: float = 0.0,
     save_dtype=jnp.float32,
     save_rows: Sequence[int] | None = None,
-    padded_rows: bool = False,
+    interpret: bool = False,
 ):
-    """Whole-solve lane-major ensemble kernel for a user rows-RHS.
+    """Constant-step whole-solve ensemble integrator for a user rows-RHS.
 
     Parameters
     ----------
     rhs: ``rhs(y_rows, p_rows, t) -> dy_rows`` in the rows idiom (module
-        docstring). Traced once per RK stage into the kernel.
+        docstring). Traced once per RK stage. Pass the same (hashable)
+        object on every call: it is part of the compiled program's key.
     y0_rows: ``(R, B)`` f32 initial state (use :func:`pack_rows`).
     p_rows: ``(P, B)`` f32 parameter rows, or None.
     duration, dt, save_every: uniform save grid; ``duration/dt`` and
         ``save_every/dt`` must be whole.
-    block_b: lane-block width; None auto-picks (2048 sweet spot).
+    block_b: members per Pallas program, a power of two; None applies
+        :func:`launch_config`. Member math does not depend on it.
     method: ``"tsit5"`` (default, matches SolverParams), ``"bosh3"``,
         ``"rk4"``.
     save_dtype: dtype of the save buffer; ``jnp.bfloat16`` halves the
-        (n_saves, R, B) HBM footprint AND the save-DMA volume (downcast
-        happens in the VMEM staging tile before the DMA -- the lever that
-        unlocked full-width SEIP saves, ops/seip_pallas.py).
+        ``(n_saves, rows, B)`` buffer (the solve stays f32; only the
+        stored saves are rounded).
     save_rows: row indices to save (any order; default all R rows). The
-        output buffer is the kernel's max-width bound, so saving only the
-        observable rows (e.g. the cumulative-incidence rows of a fit)
-        multiplies the widest ensemble that fits in HBM -- the generic
-        analog of the SEIP kernel's ``save=`` (ops/seip_pallas.py).
-    padded_rows: return the raw 8-sublane-padded save buffer
-        ``(n_saves, pad8(len(save_rows)), B)`` (padding rows zero)
-        instead of slicing to exact rows. Mosaic save DMAs require
-        8-aligned row tiles, so the exact-rows result is a full-size
-        post-kernel COPY: at max ensemble width the padded buffer and
-        the sliced copy coexist (~1.7x the peak HBM of the buffer
-        alone). ``padded_rows=True`` skips the copy -- the max-width
-        lever when the save buffer bounds the ensemble.
+        output buffer bounds the widest ensemble that fits in device
+        memory, so saving only the observable rows (e.g. the
+        cumulative-incidence rows of a fit) widens it.
+    interpret: run the Pallas kernel in interpret mode on any platform
+        (how the CPU tests exercise it). Otherwise :func:`kernel_route`
+        chooses the compiled kernel (GPU) or the ``lax`` reference (CPU).
 
-    Returns ``(n_saves, len(save_rows), B)`` saves in ``save_dtype``
-    (rows in ``save_rows`` order; :func:`unpack_rows` for the full-rows
-    case). Solve math is always f32; only saves narrow.
+    Returns ``(n_saves, len(save_rows), B)`` saves in ``save_dtype``, rows
+    in ``save_rows`` order (:func:`unpack_rows` for the full-rows case).
     """
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}; one of {list(_METHODS)}")
-    y0_rows = jnp.asarray(y0_rows, jnp.float32)
-    if y0_rows.ndim != 2:
-        raise ValueError(f"y0_rows must be (R, B), got {y0_rows.shape}")
+    y0_rows, p_rows = _check_rows(y0_rows, p_rows)
     n_rows, batch = y0_rows.shape
-    if p_rows is None:
-        p_rows = jnp.zeros((0, batch), jnp.float32)
-    p_rows = jnp.asarray(p_rows, jnp.float32)
     n_steps = int(round(duration / dt))
     save_stride = int(round(save_every / dt))
     if abs(n_steps * dt - duration) > 1e-9 * max(1.0, abs(duration)):
@@ -360,100 +409,20 @@ def ensemble_solve_kernel(
     if n_steps % save_stride:
         raise ValueError("save_every must divide duration into whole strides")
     save_rows = _check_save_rows(save_rows, n_rows)
+    block_b, num_warps = launch_config(batch, block_b)
 
-    if jax.default_backend() not in ("tpu",):
-        full = ensemble_solve_kernel_reference(
-            rhs, y0_rows, p_rows, duration=duration, dt=dt,
-            save_every=save_every, method=method, t0=t0,
-        ).astype(save_dtype)
-        picked = full[:, list(save_rows), :]
-        if padded_rows:
-            return _pad_save_rows(picked)
-        return picked
-    if block_b is None:
-        block_b = pick_block_b(batch)
-    if batch % block_b:
-        raise ValueError(f"batch {batch} must divide into {block_b}-lane blocks")
+    if not interpret and kernel_route() == "lax":
+        full = _reference_jit(
+            rhs=rhs, y0_rows=y0_rows, p_rows=p_rows, duration=duration,
+            dt=dt, save_every=save_every, method=method, t0=t0,
+        )
+        return full[:, list(save_rows), :].astype(save_dtype)
     return _solve_pallas(
-        y0_rows, p_rows, rhs=rhs, duration=float(duration), dt=float(dt),
-        save_every=float(save_every), block_b=int(block_b), method=method,
-        t0=float(t0), save_dtype=jnp.dtype(save_dtype).name,
-        save_rows=save_rows, padded_rows=bool(padded_rows),
+        y0_rows, p_rows, rhs=rhs, dt=float(dt), n_steps=n_steps,
+        save_stride=save_stride, block_b=block_b, num_warps=num_warps,
+        method=method, t0=float(t0), save_dtype=jnp.dtype(save_dtype).name,
+        save_rows=save_rows, interpret=bool(interpret),
     )
-
-
-def _pad_save_rows(picked):
-    """Replicate the kernel's 8-padded save layout (zero padding rows)."""
-    n_saves, n_save, batch = picked.shape
-    s_pad = _pad8(n_save)
-    if s_pad == n_save:
-        return picked
-    pad = jnp.zeros((n_saves, s_pad - n_save, batch), picked.dtype)
-    return jnp.concatenate([picked, pad], axis=1)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("rhs", "duration", "dt", "save_every", "block_b",
-                     "method", "t0", "save_dtype", "save_rows",
-                     "padded_rows"),
-)
-def _solve_pallas(
-    y0_rows, p_rows, *, rhs, duration, dt, save_every, block_b, method, t0,
-    save_dtype="float32", save_rows=None, padded_rows=False,
-):
-    n_rows, batch = y0_rows.shape
-    n_params = p_rows.shape[0]
-    if save_rows is None:
-        save_rows = tuple(range(n_rows))
-    n_steps = int(round(duration / dt))
-    save_stride = int(round(save_every / dt))
-    n_saves = n_steps // save_stride + 1
-    d_pad = _pad8(n_rows)
-    s_pad = _pad8(len(save_rows))
-    p_pad = _pad8(max(n_params, 1))
-    save_dtype = jnp.dtype(save_dtype)
-
-    y_padded = jnp.zeros((d_pad, batch), jnp.float32).at[:n_rows].set(y0_rows)
-    p_padded = jnp.zeros((p_pad, batch), jnp.float32).at[:n_params].set(p_rows)
-
-    kernel = functools.partial(
-        _solve_kernel,
-        rhs=rhs,
-        n_rows=n_rows,
-        n_params=n_params,
-        dt=dt,
-        t0=t0,
-        n_steps=n_steps,
-        save_stride=save_stride,
-        tableau=_METHODS[method],
-        save_rows=save_rows,
-    )
-    grid = (batch // block_b,)
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((n_saves, s_pad, batch), save_dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((d_pad, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((p_pad, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((s_pad, block_b), save_dtype),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )(y_padded, p_padded)
-    if padded_rows:
-        return out
-    return out[:, : len(save_rows), :]
-
-
-# ---------------------------------------------------------------------------
-# lax.scan reference (identical math; CPU fallback + interpret oracle)
-# ---------------------------------------------------------------------------
 
 
 def ensemble_solve_kernel_reference(
@@ -462,289 +431,207 @@ def ensemble_solve_kernel_reference(
 ):
     """The kernel's computation as one ``lax.scan`` over save strides."""
     a, b, c, n_stages = _METHODS[method]
-    y0_rows = jnp.asarray(y0_rows, jnp.float32)
-    n_rows, batch = y0_rows.shape
-    if p_rows is None:
-        p_rows = jnp.zeros((0, batch), jnp.float32)
-    p_rows = jnp.asarray(p_rows, jnp.float32)  # kernel parity: f32 math
+    y0_rows, p_rows = _check_rows(y0_rows, p_rows)
+    n_rows = y0_rows.shape[0]
     p = [p_rows[r] for r in range(p_rows.shape[0])]
     n_steps = int(round(duration / dt))
     save_stride = int(round(save_every / dt))
     n_outer = n_steps // save_stride
 
-    def inner(carry, step):
+    def inner(carry, _):
         rows, t = carry
         rows = _rk_step_rows(rhs, list(rows), p, t, dt, a, b, c, n_stages)
         return (tuple(rows), t + dt), None
 
     def outer(carry, _):
-        carry, _ = jax.lax.scan(inner, carry, jnp.arange(save_stride))
+        carry, _ = jax.lax.scan(inner, carry, None, length=save_stride)
         return carry, jnp.stack(carry[0], axis=0)
 
     y = tuple(y0_rows[r] for r in range(n_rows))
     _, saves = jax.lax.scan(
         outer, (y, jnp.float32(t0)), None, length=n_outer
     )
-    return jnp.concatenate([jnp.stack(y, axis=0)[None], saves], axis=0)
+    return jnp.concatenate([y0_rows[None], saves], axis=0)
+
+
+#: the CPU route: one compiled program per configuration (the reference
+#: itself re-traces its scans on every un-jitted call)
+_reference_jit = jax.jit(
+    ensemble_solve_kernel_reference,
+    static_argnames=("rhs", "duration", "dt", "save_every", "method", "t0"),
+)
 
 
 # ---------------------------------------------------------------------------
 # adaptive (lockstep-dt) variant
 # ---------------------------------------------------------------------------
 #
-# The generic analog of the SEIP adaptive kernel (ops/seip_pallas.py
-# ``_seip_kernel_adaptive``): dt is LOCKSTEP PER LANE BLOCK -- each Pallas
-# program carries one scalar (t, dt) chain, the controller norm is the max
-# over the block of each member's scaled RMS error (so every member
-# satisfies the tolerance and the block's dt is set by its currently
-# stiffest member), and dt is clamped to land EXACTLY on each save point
-# with the grid engine's semantics (ode/integrate.py): an ACCEPTED clamped
-# step keeps the natural dt, a REJECTED one shrinks from the clamped size.
-# Budget exhaustion (more than steps_per_save attempts in one save
-# interval; the FIRST interval gets max(4x, 32) for the dt0 ramp + initial
-# transient) emits NaN saves until the block catches up and is counted in
-# the returned stats -- the SolverParams.step_budget contract.
-#
-# Layout difference from the SEIP kernel: rows-idiom state is small enough
-# that RK stages live as *registers* -- only the live state y and the
-# accepted-candidate accumulator need VMEM scratch refs (values cannot
-# escape a pl.when region; the scalar controller norm escapes through
-# SMEM, the candidate through its ref). Saves are pipelined bf16-capable
-# DMAs exactly as in the constant-step kernel above.
+# dt is LOCKSTEP PER MEMBER BLOCK: each Pallas program carries one scalar
+# (t, dt) chain, the controller norm is the max over the block of each
+# member's scaled RMS error (so every member satisfies the tolerance and the
+# block's dt is set by its currently stiffest member), and dt is clamped to
+# land EXACTLY on each save point with the grid engine's semantics
+# (ode/integrate.py): an ACCEPTED clamped step keeps the natural dt, a
+# REJECTED one shrinks from the clamped size. Blocks run in parallel and in
+# no order, and nothing passes between them. Budget exhaustion (more than
+# steps_per_save attempts in one save interval; the FIRST interval gets
+# max(4x, 32) for the dt0 ramp + initial transient) emits NaN saves until
+# the block catches up and is counted in the returned stats -- the
+# SolverParams.step_budget contract. The reference runs the same code with
+# the whole ensemble as one block.
+
+
+def _make_interval(rhs, p, tableau, *, rtol, atol, eps):
+    """``interval(carry, s_end, k) -> (carry, reached)``: up to ``k``
+    attempts toward the save point ``s_end``, shared by kernel and reference.
+
+    ``carry = (t, dt, y_rows, f0_rows, n_accepted, n_rejected)``. The loop
+    stops as soon as the block reaches ``s_end``; an attempt past that point
+    would change nothing.
+    """
+    a, b, e, c, n_stages, err_order = tableau
+    f32 = jnp.float32
+    i32 = jnp.int32
+
+    def attempt(s_end, carry):
+        t, dt_next, y, f0, na, nr = carry
+        remaining = s_end - t
+        dt_used = jnp.minimum(dt_next, remaining)
+        landing = dt_used >= remaining - eps
+        y_new, err, k_last = _rk_embedded_step_rows(
+            rhs, list(y), p, t, dt_used, a, b, e, c, n_stages, f0
+        )
+        sq = None
+        for r in range(len(y)):
+            sc = atol + rtol * jnp.maximum(jnp.abs(y[r]), jnp.abs(y_new[r]))
+            q = err[r] / sc
+            sq = q * q if sq is None else sq + q * q
+        norm = jnp.max(jnp.sqrt(sq * (1.0 / len(y))))
+        ok = jnp.isfinite(norm)
+        safe = jnp.maximum(norm, jnp.asarray(1e-30, f32))
+        # norm**(-1/err_order) via exp/log
+        factor = jnp.clip(
+            0.9 * jnp.exp(jnp.log(safe) * (-1.0 / err_order)), 0.2, 10.0
+        )
+        factor = jnp.where(ok, factor, jnp.asarray(0.2, f32))
+        acc = ok & (norm <= 1.0)
+        # an ACCEPTED save-clamped step says nothing about the natural dt
+        # (it was artificially short): keep dt_next; a REJECTED one must
+        # shrink from the clamped size (grid-engine semantics)
+        dt_new = jnp.where(landing & acc, dt_next, dt_used * factor)
+        y = tuple(jnp.where(acc, yn, yo) for yn, yo in zip(y_new, y))
+        # on ACCEPT the FSAL carry becomes k_last (f at y_new)
+        f0 = tuple(jnp.where(acc, kn, fo) for kn, fo in zip(k_last, f0))
+        t = jnp.where(acc, jnp.where(landing, s_end, t + dt_used), t)
+        return (t, dt_new, y, f0, na + acc.astype(i32),
+                nr + (~acc).astype(i32))
+
+    def interval(carry, s_end, k):
+        def cond(state):
+            n, carry = state
+            return (n < k) & (s_end - carry[0] > eps)
+
+        def body(state):
+            n, carry = state
+            return n + 1, attempt(s_end, carry)
+
+        _, carry = jax.lax.while_loop(cond, body, (jnp.int32(0), carry))
+        return carry, carry[0] >= s_end - eps
+
+    return interval
+
+
+def _adaptive_start(rhs, y, p, *, t0, dt0):
+    """Initial carry: the FSAL stage f(t0, y0) is evaluated once up front."""
+    z = jnp.zeros((), jnp.int32)
+    t0 = jnp.asarray(t0, jnp.float32)
+    f0 = tuple(rhs(list(y), p, t0))
+    return (t0, jnp.asarray(dt0, jnp.float32), tuple(y), f0, z, z)
+
+
+def _adaptive_grid(duration, save_every, steps_per_save, dt0):
+    n_saves = int(round(duration / save_every)) + 1
+    k_first = max(4 * int(steps_per_save), 32)
+    dt0 = float(save_every / 8.0 if dt0 is None else dt0)
+    eps = 1e-6 * max(float(save_every), 1.0)
+    return n_saves, k_first, dt0, eps
 
 
 def _solve_kernel_adaptive(
-    y_ref,
-    p_ref,
-    out_ref,
-    flag_ref,
-    y_scr,
-    ac_scr,
-    f_scr,
-    stage,
-    sem,
-    nrm_ref,
-    *,
-    rhs,
-    n_rows: int,
-    n_params: int,
-    n_saves: int,
-    save_every: float,
-    steps_per_save: int,
-    rtol: float,
-    atol: float,
-    dt0: float,
-    t0: float,
-    tableau,
+    y_ref, p_ref, out_ref, flag_ref, *, rhs, n_rows, n_params, n_saves,
+    save_every, steps_per_save, k_first, rtol, atol, dt0, eps, t0, tableau,
     save_rows,
 ):
-    a, b, e, c, n_stages, err_order = tableau
-    i = pl.program_id(0)
-    s_pad, block_b = stage.shape
     f32 = jnp.float32
-    i32 = jnp.int32
-    eps = 1e-6 * max(float(save_every), 1.0)
     p = [p_ref[r, :] for r in range(n_params)]
+    interval = _make_interval(
+        rhs, p, tableau, rtol=rtol, atol=atol, eps=eps
+    )
 
-    for r in range(n_rows):
-        y_scr[r, :] = y_ref[r, :]
-    # seed the FSAL carry: one up-front f(t0, y0) eval, reused by every
-    # first stage thereafter (refreshed with k_last on each ACCEPT; exact
-    # after a REJECT since (t, y) are unchanged)
-    f_init = rhs([y_ref[r, :] for r in range(n_rows)], p, jnp.float32(t0))
-    for r in range(n_rows):
-        f_scr[r, :] = f_init[r]
-    for j in range(len(save_rows), s_pad):  # zero padding rows once
-        stage[j, :] = jnp.zeros_like(stage[j, :])
-
-    def _dma(slot):
-        return pltpu.make_async_copy(
-            stage,
-            out_ref.at[slot, :, pl.ds(i * block_b, block_b)],
-            sem,
-        )
-
-    def save(slot, reached):
+    def save(slot, rows, reached):
         for j, r in enumerate(save_rows):
-            v = y_scr[r, :]
-            stage[j, :] = jnp.where(
-                reached, v, jnp.full_like(v, jnp.nan)
-            ).astype(stage.dtype)
-        _dma(slot).start()
+            v = jnp.where(reached, rows[r], jnp.full_like(rows[r], jnp.nan))
+            pltriton.store(out_ref.at[slot, j, :], v.astype(out_ref.dtype))
 
-    save(0, jnp.asarray(True))
+    y = tuple(y_ref[r, :] for r in range(n_rows))
+    save(0, y, True)
+    carry = _adaptive_start(rhs, y, p, t0=t0, dt0=dt0)
+    carry, reached = interval(carry, jnp.asarray(t0 + save_every, f32), k_first)
+    save(1, carry[2], reached)
 
-    def make_attempt(s_end):
-        def attempt(_, carry):
-            t, dt_next, na, nr = carry
-            remaining = s_end - t
-            active = remaining > eps
-            dt_used = jnp.minimum(dt_next, remaining)
-            landing = dt_used >= remaining - eps
-
-            @pl.when(active)
-            def _():
-                rows = [y_scr[r, :] for r in range(n_rows)]
-                y_new, err, k_last = _rk_embedded_step_rows(
-                    rhs, rows, p, t, dt_used, a, b, e, c, n_stages,
-                    f0=[f_scr[r, :] for r in range(n_rows)],
-                )
-                sq = None
-                for r in range(n_rows):
-                    sc = atol + rtol * jnp.maximum(
-                        jnp.abs(rows[r]), jnp.abs(y_new[r])
-                    )
-                    q = err[r] / sc
-                    sq = q * q if sq is None else sq + q * q
-                norm_in = jnp.max(jnp.sqrt(sq * (1.0 / n_rows)))
-                nrm_ref[0] = norm_in
-                # same accept predicate the outer code derives from SMEM;
-                # on ACCEPT the FSAL carry becomes k_last (f at y_new)
-                good_in = jnp.isfinite(norm_in) & (norm_in <= 1.0)
-                for r in range(n_rows):
-                    ac_scr[r, :] = y_new[r]
-                    f_scr[r, :] = jnp.where(good_in, k_last[r], f_scr[r, :])
-
-            norm = nrm_ref[0]  # stale when inactive: every update is masked
-            ok = jnp.isfinite(norm)
-            safe = jnp.maximum(norm, jnp.asarray(1e-30, f32))
-            # norm**(-1/err_order) via exp/log: Mosaic has no scalar powf
-            factor = jnp.clip(
-                0.9 * jnp.exp(jnp.log(safe) * (-1.0 / err_order)), 0.2, 10.0
-            )
-            factor = jnp.where(ok, factor, jnp.asarray(0.2, f32))
-            good = ok & (norm <= 1.0)
-            acc = active & good
-            # an ACCEPTED save-clamped step says nothing about the natural
-            # dt (it was artificially short): keep dt_next; a REJECTED one
-            # must shrink from the clamped size (grid-engine semantics)
-            dt_new = jnp.where(landing & good, dt_next, dt_used * factor)
-            dt_new = jnp.where(active, dt_new, dt_next)
-
-            @pl.when(acc)
-            def _():
-                for r in range(n_rows):
-                    y_scr[r, :] = ac_scr[r, :]
-
-            t_new = jnp.where(acc, jnp.where(landing, s_end, t + dt_used), t)
-            na = na + acc.astype(i32)
-            nr = nr + (active & ~acc).astype(i32)
-            return (t_new, dt_new, na, nr)
-
-        return attempt
-
-    def run_interval(carry, s_end, k_attempts):
-        t, dt, na, nr, bad = carry
-        t, dt, na, nr = jax.lax.fori_loop(
-            0, k_attempts, make_attempt(s_end), (t, dt, na, nr)
-        )
-        reached = t >= s_end - eps
-        bad = bad + (~reached).astype(i32)
-        return (t, dt, na, nr, bad), reached
-
-    carry = (
-        jnp.asarray(t0, f32),
-        jnp.asarray(dt0, f32),
-        jnp.zeros((), i32),
-        jnp.zeros((), i32),
-        jnp.zeros((), i32),
-    )
-    k_first = max(4 * steps_per_save, 32)
-    carry, reached1 = run_interval(
-        carry, jnp.asarray(t0 + save_every, f32), k_first
-    )
-    _dma(0).wait()
-    save(1, reached1)
-
-    def outer(s, carry):
+    def outer(s, state):
+        carry, bad = state
         s_end = t0 + s.astype(f32) * save_every
-        carry, reached = run_interval(carry, s_end, steps_per_save)
-        _dma(s - 1).wait()
-        save(s, reached)
-        return carry
+        carry, reached = interval(carry, s_end, steps_per_save)
+        save(s, carry[2], reached)
+        return carry, bad + (~reached).astype(jnp.int32)
 
-    carry = jax.lax.fori_loop(2, n_saves, outer, carry)
-    _dma(n_saves - 1).wait()
-
-    _, _, na, nr, bad = carry
-    col = jax.lax.broadcasted_iota(i32, (8, 128), 1)
-    flag_ref[0] = jnp.where(
-        col == 0, bad, jnp.where(col == 1, na, jnp.where(col == 2, nr, 0))
+    carry, bad = jax.lax.fori_loop(
+        2, n_saves, outer, (carry, (~reached).astype(jnp.int32))
     )
+    flag_ref[0] = bad
+    flag_ref[1] = carry[4]
+    flag_ref[2] = carry[5]
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("rhs", "duration", "save_every", "steps_per_save",
-                     "rtol", "atol", "dt0", "block_b", "method", "t0",
-                     "save_dtype", "save_rows", "padded_rows"),
+                     "rtol", "atol", "dt0", "block_b", "num_warps", "method",
+                     "t0", "save_dtype", "save_rows", "interpret"),
 )
 def _solve_pallas_adaptive(
     y0_rows, p_rows, *, rhs, duration, save_every, steps_per_save, rtol,
-    atol, dt0, block_b, method, t0, save_dtype="float32", save_rows=None,
-    padded_rows=False,
+    atol, dt0, block_b, num_warps, method, t0, save_dtype, save_rows,
+    interpret=False,
 ):
     n_rows, batch = y0_rows.shape
-    n_params = p_rows.shape[0]
-    if save_rows is None:
-        save_rows = tuple(range(n_rows))
-    n_saves = int(round(duration / save_every)) + 1
-    d_pad = _pad8(n_rows)
-    s_pad = _pad8(len(save_rows))
-    p_pad = _pad8(max(n_params, 1))
-    save_dtype = jnp.dtype(save_dtype)
-
-    y_padded = jnp.zeros((d_pad, batch), jnp.float32).at[:n_rows].set(y0_rows)
-    p_padded = jnp.zeros((p_pad, batch), jnp.float32).at[:n_params].set(p_rows)
-
-    kernel = functools.partial(
-        _solve_kernel_adaptive,
-        rhs=rhs,
-        n_rows=n_rows,
-        n_params=n_params,
-        n_saves=n_saves,
-        save_every=save_every,
-        steps_per_save=steps_per_save,
-        rtol=rtol,
-        atol=atol,
-        dt0=dt0,
-        t0=t0,
-        tableau=_ADAPTIVE_METHODS[method],
-        save_rows=save_rows,
+    padded = -(-batch // block_b) * block_b
+    n_saves, k_first, dt0, eps = _adaptive_grid(
+        duration, save_every, steps_per_save, dt0
     )
-    nb = batch // block_b
-    out, flags = pl.pallas_call(
-        kernel,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_saves, s_pad, batch), save_dtype),
-            jax.ShapeDtypeStruct((nb, 8, 128), jnp.int32),
+    kernel = functools.partial(
+        _solve_kernel_adaptive, rhs=rhs, n_rows=n_rows,
+        n_params=p_rows.shape[0], n_saves=n_saves, save_every=save_every,
+        steps_per_save=steps_per_save, k_first=k_first, rtol=rtol,
+        atol=atol, dt0=dt0, eps=eps, t0=t0,
+        tableau=_ADAPTIVE_METHODS[method], save_rows=save_rows,
+    )
+    n_save = len(save_rows)
+    nb = padded // block_b
+    out, flags = _pallas(
+        kernel, _pad_members(y0_rows, padded), _pad_members(p_rows, padded),
+        [
+            jax.ShapeDtypeStruct((n_saves, n_save, padded), save_dtype),
+            jax.ShapeDtypeStruct((nb, 4), jnp.int32),
         ],
-        grid=(nb,),
-        in_specs=[
-            pl.BlockSpec((d_pad, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((p_pad, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
+        [
+            pl.BlockSpec((n_saves, n_save, block_b), lambda i: (0, 0, i)),
+            pl.BlockSpec((None, 4), lambda i: (i, 0)),
         ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, 8, 128), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((d_pad, block_b), jnp.float32),
-            pltpu.VMEM((d_pad, block_b), jnp.float32),
-            # FSAL carry: f(t, y) of the live state (round 5: reusing it
-            # cuts BS3 from 4 to 3 RHS evals per steady-state attempt)
-            pltpu.VMEM((d_pad, block_b), jnp.float32),
-            pltpu.VMEM((s_pad, block_b), save_dtype),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SMEM((1,), jnp.float32),
-        ],
-    )(y_padded, p_padded)
-    if padded_rows:
-        return out, flags
-    return out[:, : len(save_rows), :], flags
+        block_b=block_b, num_warps=num_warps, interpret=interpret,
+    )
+    return (out if padded == batch else out[..., :batch]), flags
 
 
 def ensemble_solve_kernel_adaptive(
@@ -763,46 +650,39 @@ def ensemble_solve_kernel_adaptive(
     save_dtype=jnp.float32,
     t0: float = 0.0,
     save_rows: Sequence[int] | None = None,
-    padded_rows: bool = False,
+    interpret: bool = False,
 ):
-    """Adaptive (lockstep-dt) whole-solve ensemble kernel for a rows-RHS.
+    """Adaptive (lockstep-dt) whole-solve ensemble integrator for a rows-RHS.
 
     The adaptive analog of :func:`ensemble_solve_kernel` -- the reference's
     DEFAULT solve mode is adaptive
-    (/root/reference/src/dynode/config/params.py:36-47). Embedded
-    Bogacki-Shampine 3(2) (default; 4 RHS evals/attempt) or Tsitouras 5(4)
-    with an I-controller; dt shared across each lane block and driven by
-    the block's max per-member scaled RMS error; clamped to land exactly on
-    each save point (see the kernel comment above
-    :func:`_solve_kernel_adaptive` for the full contract).
+    (CDCgov/DynODE/src/dynode/config/params.py:36-47). Embedded
+    Bogacki-Shampine 3(2) (default; 3 RHS evals per steady-state attempt
+    with the FSAL carry) or Tsitouras 5(4) with an I-controller; dt shared
+    across each block of ``block_b`` members and driven by the block's max
+    per-member scaled RMS error; clamped to land exactly on each save point
+    (see the comment above :func:`_make_interval` for the full contract).
 
     ``atol`` defaults to 1e-6 -- scaled for O(1) states (proportions). For
     ~1e3-scale populations use atol=1e-3: f64-calibrated defaults make the
     f32 controller thrash (CLAUDE.md).
 
     Returns ``(saves, stats)``: saves ``(n_saves, len(save_rows), B)`` in
-    ``save_dtype`` (all state rows when ``save_rows`` is None; NaN rows
-    where a block's attempt budget ran out); ``stats`` has per-block int32
-    arrays ``exhausted_intervals`` (nonzero means raise
-    ``steps_per_save``), ``n_accepted``, ``n_rejected``. Off-TPU falls back
-    to :func:`ensemble_solve_kernel_adaptive_reference` (one global
-    lockstep block). ``save_rows`` selects which rows are saved -- the
-    output buffer bounds the kernel's max width, so observable-only saves
-    widen the largest ensemble that fits; ``padded_rows=True``
-    additionally skips the exact-rows slice copy (see
-    :func:`ensemble_solve_kernel`).
+    ``save_dtype`` (NaN rows where a block's attempt budget ran out);
+    ``stats`` has per-block int32 arrays ``exhausted_intervals`` (nonzero
+    means raise ``steps_per_save``), ``n_accepted``, ``n_rejected``. The
+    CPU route runs :func:`ensemble_solve_kernel_adaptive_reference` (one
+    block of all B members); ``interpret`` as in
+    :func:`ensemble_solve_kernel`. Controller decisions depend on which
+    members share a block, so results agree with another ``block_b`` only
+    to the solve tolerance.
     """
     if method not in _ADAPTIVE_METHODS:
         raise ValueError(
             f"unknown method {method!r}; one of {list(_ADAPTIVE_METHODS)}"
         )
-    y0_rows = jnp.asarray(y0_rows, jnp.float32)
-    if y0_rows.ndim != 2:
-        raise ValueError(f"y0_rows must be (R, B), got {y0_rows.shape}")
+    y0_rows, p_rows = _check_rows(y0_rows, p_rows)
     n_rows, batch = y0_rows.shape
-    if p_rows is None:
-        p_rows = jnp.zeros((0, batch), jnp.float32)
-    p_rows = jnp.asarray(p_rows, jnp.float32)
     n_saves = int(round(duration / save_every)) + 1
     if abs((n_saves - 1) * save_every - duration) > 1e-9 * max(
         1.0, abs(duration)
@@ -810,37 +690,29 @@ def ensemble_solve_kernel_adaptive(
         raise ValueError("duration must be a whole number of save intervals")
     if n_saves < 2:
         raise ValueError("duration must cover at least one save interval")
-    if dt0 is None:
-        dt0 = save_every / 8.0
     save_rows = _check_save_rows(save_rows, n_rows)
-    if jax.default_backend() not in ("tpu",):
-        saves, stats = ensemble_solve_kernel_adaptive_reference(
-            rhs, y0_rows, p_rows, duration=duration, save_every=save_every,
-            rtol=rtol, atol=atol, dt0=dt0, steps_per_save=steps_per_save,
-            method=method, t0=t0,
+    block_b, num_warps = launch_config(batch, block_b)
+
+    if not interpret and kernel_route() == "lax":
+        saves, stats = _adaptive_reference_jit(
+            rhs=rhs, y0_rows=y0_rows, p_rows=p_rows, duration=duration,
+            save_every=save_every, rtol=rtol, atol=atol, dt0=dt0,
+            steps_per_save=steps_per_save, method=method, t0=t0,
         )
-        picked = saves.astype(save_dtype)[:, list(save_rows), :]
-        if padded_rows:
-            picked = _pad_save_rows(picked)
-        return picked, stats
-    if block_b is None:
-        block_b = pick_block_b(batch)
-    if batch % block_b:
-        raise ValueError(
-            f"batch {batch} must divide into {block_b}-lane blocks"
-        )
+        return saves[:, list(save_rows), :].astype(save_dtype), stats
     saves, flags = _solve_pallas_adaptive(
         y0_rows, p_rows, rhs=rhs, duration=float(duration),
         save_every=float(save_every), steps_per_save=int(steps_per_save),
-        rtol=float(rtol), atol=float(atol), dt0=float(dt0),
-        block_b=int(block_b), method=method, t0=float(t0),
+        rtol=float(rtol), atol=float(atol),
+        dt0=None if dt0 is None else float(dt0), block_b=block_b,
+        num_warps=num_warps, method=method, t0=float(t0),
         save_dtype=jnp.dtype(save_dtype).name, save_rows=save_rows,
-        padded_rows=bool(padded_rows),
+        interpret=bool(interpret),
     )
     stats = {
-        "exhausted_intervals": flags[:, 0, 0],
-        "n_accepted": flags[:, 0, 1],
-        "n_rejected": flags[:, 0, 2],
+        "exhausted_intervals": flags[:, 0],
+        "n_accepted": flags[:, 1],
+        "n_rejected": flags[:, 2],
     }
     return saves, stats
 
@@ -849,103 +721,56 @@ def ensemble_solve_kernel_adaptive_reference(
     rhs, y0_rows, p_rows=None, *, duration, save_every=1.0, rtol=1e-4,
     atol=1e-6, dt0=None, steps_per_save=8, method="bosh3", t0=0.0,
 ):
-    """Pure-JAX lockstep reference (one global block) + CPU fallback.
+    """Pure-JAX lockstep reference (one block of all members).
 
-    Same algorithm as ``_solve_kernel_adaptive`` -- shared scalar dt over
-    the WHOLE ensemble, max-of-member-RMS controller norm, save-point
-    clamping, per-interval attempt budgets -- so with ``block_b == batch``
-    the kernel makes identical controller decisions (interpret-mode
-    equivalence tests rely on this). Returns ``(saves, stats)`` with
-    ``(1,)``-shaped stats arrays (one global block).
+    Same code as the kernel -- shared scalar dt over the WHOLE ensemble,
+    max-of-member-RMS controller norm, save-point clamping, per-interval
+    attempt budgets -- so with ``block_b == batch`` the kernel makes
+    identical controller decisions. Returns ``(saves, stats)`` with
+    ``(1,)``-shaped stats arrays (one block).
     """
-    a, b, e, c, n_stages, err_order = _ADAPTIVE_METHODS[method]
-    y0_rows = jnp.asarray(y0_rows, jnp.float32)
-    n_rows, batch = y0_rows.shape
-    if p_rows is None:
-        p_rows = jnp.zeros((0, batch), jnp.float32)
-    p_rows = jnp.asarray(p_rows, jnp.float32)  # kernel parity: f32 math
+    y0_rows, p_rows = _check_rows(y0_rows, p_rows)
+    n_rows = y0_rows.shape[0]
     p = [p_rows[r] for r in range(p_rows.shape[0])]
-    n_saves = int(round(duration / save_every)) + 1
-    k = int(steps_per_save)
-    k_first = max(4 * k, 32)
-    dt0 = float(save_every / 8.0 if dt0 is None else dt0)
-    eps = 1e-6 * max(float(save_every), 1.0)
+    n_saves, k_first, dt0, eps = _adaptive_grid(
+        duration, save_every, steps_per_save, dt0
+    )
     f32 = jnp.float32
-    i32 = jnp.int32
+    interval = _make_interval(
+        rhs, p, _ADAPTIVE_METHODS[method], rtol=rtol, atol=atol, eps=eps
+    )
 
-    def attempt(_, carry):
-        t, dt_next, y, f0, na, nr, s_end = carry
-        remaining = s_end - t
-        active = remaining > eps
-        dt_used = jnp.minimum(dt_next, remaining)
-        landing = dt_used >= remaining - eps
-        y_new, err, k_last = _rk_embedded_step_rows(
-            rhs, list(y), p, t, dt_used, a, b, e, c, n_stages, f0=list(f0)
-        )
-        sq = None
-        for r in range(n_rows):
-            sc = atol + rtol * jnp.maximum(jnp.abs(y[r]), jnp.abs(y_new[r]))
-            q = err[r] / sc
-            sq = q * q if sq is None else sq + q * q
-        norm = jnp.max(jnp.sqrt(sq * (1.0 / n_rows)))
-        ok = jnp.isfinite(norm)
-        safe = jnp.maximum(norm, jnp.asarray(1e-30, f32))
-        factor = jnp.clip(
-            0.9 * jnp.exp(jnp.log(safe) * (-1.0 / err_order)), 0.2, 10.0
-        )
-        factor = jnp.where(ok, factor, jnp.asarray(0.2, f32))
-        good = ok & (norm <= 1.0)
-        acc = active & good
-        dt_new = jnp.where(landing & good, dt_next, dt_used * factor)
-        dt_new = jnp.where(active, dt_new, dt_next)
-        y_out = tuple(
-            jnp.where(acc, yn, yo) for yn, yo in zip(y_new, y)
-        )
-        # FSAL carry mirrors the kernel: k_last becomes f0 on ACCEPT,
-        # unchanged otherwise (exact after a REJECT: (t, y) unchanged)
-        f_out = tuple(
-            jnp.where(acc, kn, fo) for kn, fo in zip(k_last, f0)
-        )
-        t_new = jnp.where(acc, jnp.where(landing, s_end, t + dt_used), t)
-        na = na + acc.astype(i32)
-        nr = nr + (active & ~acc).astype(i32)
-        return (t_new, dt_new, y_out, f_out, na, nr, s_end)
-
-    def run_interval(carry, s_end, k_attempts):
-        t, dt, y, f0, na, nr, bad = carry
-        t, dt, y, f0, na, nr, _ = jax.lax.fori_loop(
-            0, k_attempts, attempt, (t, dt, y, f0, na, nr, s_end)
-        )
-        reached = t >= s_end - eps
-        bad = bad + (~reached).astype(i32)
-        return (t, dt, y, f0, na, nr, bad), reached
+    def emit(rows, reached):
+        rows = jnp.stack(rows, axis=0)
+        return jnp.where(reached, rows, jnp.full_like(rows, jnp.nan))
 
     y = tuple(y0_rows[r] for r in range(n_rows))
-    f_init = tuple(rhs(list(y), p, jnp.asarray(t0, f32)))
-    carry = (
-        jnp.asarray(t0, f32), jnp.asarray(dt0, f32), y, f_init,
-        jnp.zeros((), i32), jnp.zeros((), i32), jnp.zeros((), i32),
-    )
-    carry, reached1 = run_interval(
-        carry, jnp.asarray(t0 + save_every, f32), k_first
-    )
-    first = jnp.stack(carry[2], axis=0)
-    first = jnp.where(reached1, first, jnp.full_like(first, jnp.nan))
+    carry = _adaptive_start(rhs, y, p, t0=t0, dt0=dt0)
+    carry, reached1 = interval(carry, jnp.asarray(t0 + save_every, f32), k_first)
+    first = emit(carry[2], reached1)
 
-    def outer(carry, s):
-        s_end = t0 + s * save_every
-        carry, reached = run_interval(carry, s_end, k)
-        rows = jnp.stack(carry[2], axis=0)
-        return carry, jnp.where(reached, rows, jnp.full_like(rows, jnp.nan))
+    def outer(state, s):
+        carry, bad = state
+        carry, reached = interval(carry, t0 + s * save_every, steps_per_save)
+        return (carry, bad + (~reached).astype(jnp.int32)), emit(
+            carry[2], reached
+        )
 
-    carry, rest = jax.lax.scan(
-        outer, carry, jnp.arange(2, n_saves, dtype=f32)
+    (carry, bad), rest = jax.lax.scan(
+        outer, (carry, (~reached1).astype(jnp.int32)),
+        jnp.arange(2, n_saves, dtype=f32),
     )
     saves = jnp.concatenate([y0_rows[None], first[None], rest], axis=0)
-    _, _, _, _, na, nr, bad = carry
     stats = {
         "exhausted_intervals": bad[None],
-        "n_accepted": na[None],
-        "n_rejected": nr[None],
+        "n_accepted": carry[4][None],
+        "n_rejected": carry[5][None],
     }
     return saves, stats
+
+
+_adaptive_reference_jit = jax.jit(
+    ensemble_solve_kernel_adaptive_reference,
+    static_argnames=("rhs", "duration", "save_every", "rtol", "atol", "dt0",
+                     "steps_per_save", "method", "t0"),
+)

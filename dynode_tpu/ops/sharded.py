@@ -1,37 +1,35 @@
 """Multi-device (mesh) wrappers for the whole-solve ensemble kernels.
 
 Ensemble members are embarrassingly parallel, so the scale-out story for
-the Pallas kernels is ``shard_map`` over the mesh's member axis: the
-member (lane) axis of every rows-layout array is split across devices and
-each device launches the single-chip kernel on its local shard. No
+the whole-solve integrators is ``shard_map`` over the mesh's member axis:
+the member axis of every rows-layout array is split across devices and
+each device runs the single-device solve on its local shard. No
 collectives are needed -- the save buffers come back sharded the same way,
 and downstream reductions (ensemble means, quantiles) run on the sharded
-buffers with XLA inserting the cross-device reduce.
-
-This closes the gap between the single-chip kernel headlines (bench.py)
-and the v5e-8 mesh targets (SURVEY.md section 2.8, BASELINE.md): the
-XLA engines scale through GSPMD sharding (``simulate_ensemble(mesh=)``,
-``parallel/mesh.py``), and the kernels scale through these wrappers.
+buffers with XLA inserting the cross-device reduce. The XLA engines scale
+through GSPMD sharding instead (``simulate_ensemble(mesh=)``,
+``parallel/mesh.py``).
 
 Numerics:
 
-- constant-step kernels are member-math invariant to both the device split
-  and the lane-block width (each member occupies one lane for the whole
-  solve), so a sharded solve is bit-identical to the single-device solve.
-- the ADAPTIVE kernels share one dt chain per lane block, so controller
-  decisions depend on which members share a block. Pass an explicit
-  ``block_b`` that divides the per-device batch to make the device split
-  preserve block boundaries (bit-identical again); otherwise results agree
-  only to the solve tolerance.
+- constant-step solves are member-math invariant to both the device split
+  and the block width (each member is one thread for the whole solve), so
+  a sharded solve is bit-identical to the single-device solve.
+- the ADAPTIVE integrators share one dt chain per member block, so
+  controller decisions depend on which members share a block. Pass an
+  explicit ``block_b`` that divides the per-device batch to make the
+  device split preserve block boundaries (bit-identical again); otherwise
+  results agree only to the solve tolerance. The SEIP adaptive solve
+  shares one chain per device.
 
-Off-TPU (e.g. the driver's 8-virtual-CPU-device dryrun) the underlying
-entry points fall back to their pure-``lax`` references, which shard_map
-partitions like any other JAX program -- the same code path validates the
-partitioning logic without TPU hardware.
+On CPU devices (for example a virtual multi-device mesh) the entry points
+take their ``lax`` route, which shard_map partitions like any other JAX
+program.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import jax
@@ -61,6 +59,55 @@ def _check_batch(batch: int, mesh: Mesh, axis_name: str) -> int:
     return n_dev
 
 
+def _static(kwargs) -> tuple:
+    """Forwarded keyword arguments as a hashable jit key."""
+    return tuple(sorted(
+        (k, tuple(v) if isinstance(v, list) else v) for k, v in kwargs.items()
+    ))
+
+
+def _shard_members(fn, mesh, in_specs, out_specs, *args):
+    # no collectives inside. check_vma stays off: the Pallas call declares
+    # no varying-axes type on its outputs, and the lax routes' loop carries
+    # start replicated (y0 broadcast, the scalar t/dt chain) and become
+    # shard-varying once they meet member data
+    return jax.shard_map(
+        fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=False,
+    )(*args)
+
+
+# Each wrapper is one jitted program keyed on its static configuration, so
+# a repeated call reuses the compiled program: an un-jitted shard_map
+# re-lowers its body (and recompiles the kernel) on every call.
+@functools.partial(
+    jax.jit,
+    static_argnames=("solve", "rhs", "mesh", "axis_name", "out_specs",
+                     "kwargs"),
+)
+def _rows_sharded_jit(y0_rows, p_rows, *, solve, rhs, mesh, axis_name,
+                      out_specs, kwargs):
+    return _shard_members(
+        lambda y_loc, p_loc: solve(rhs, y_loc, p_loc, **dict(kwargs)),
+        mesh, (P(None, axis_name), P(None, axis_name)), out_specs,
+        y0_rows, p_rows,
+    )
+
+
+def _rows_sharded(solve, rhs, y0_rows, p_rows, mesh, axis_name, out_specs,
+                  kwargs):
+    y0_rows = jnp.asarray(y0_rows, jnp.float32)
+    batch = y0_rows.shape[1]
+    _check_batch(batch, mesh, axis_name)
+    if p_rows is None:
+        p_rows = jnp.zeros((0, batch), jnp.float32)
+    return _rows_sharded_jit(
+        y0_rows, jnp.asarray(p_rows, jnp.float32), solve=solve, rhs=rhs,
+        mesh=mesh, axis_name=axis_name, out_specs=out_specs,
+        kwargs=_static(kwargs),
+    )
+
+
 def ensemble_solve_kernel_sharded(
     rhs: Callable,
     y0_rows: jnp.ndarray,
@@ -74,26 +121,14 @@ def ensemble_solve_kernel_sharded(
 
     ``y0_rows``/``p_rows`` are the usual ``(R, B)``/``(P, B)`` rows arrays
     with ``B`` divisible by the mesh axis size; each device runs the
-    whole-solve kernel on its ``B / n_devices`` lane shard. Returns the
-    ``(n_saves, rows, B)`` save buffer sharded along its member axis.
-    All keyword arguments of the single-chip entry are forwarded.
+    whole-solve integrator on its ``B / n_devices`` member shard. Returns
+    the ``(n_saves, rows, B)`` save buffer sharded along its member axis.
+    All keyword arguments of the single-device entry are forwarded.
     """
-    y0_rows = jnp.asarray(y0_rows, jnp.float32)
-    _, batch = y0_rows.shape
-    _check_batch(batch, mesh, axis_name)
-    if p_rows is None:
-        p_rows = jnp.zeros((0, batch), jnp.float32)
-    p_rows = jnp.asarray(p_rows, jnp.float32)
-
-    def local_solve(y_loc, p_loc):
-        return ensemble_solve_kernel(rhs, y_loc, p_loc, **kwargs)
-
-    return jax.shard_map(
-        local_solve,
-        mesh=mesh,
-        in_specs=(P(None, axis_name), P(None, axis_name)),
-        out_specs=P(None, None, axis_name),
-    )(y0_rows, p_rows)
+    return _rows_sharded(
+        ensemble_solve_kernel, rhs, y0_rows, p_rows, mesh, axis_name,
+        P(None, None, axis_name), kwargs,
+    )
 
 
 def ensemble_solve_kernel_adaptive_sharded(
@@ -107,32 +142,47 @@ def ensemble_solve_kernel_adaptive_sharded(
 ):
     """:func:`ensemble_solve_kernel_adaptive` sharded over a mesh axis.
 
-    Returns ``(saves, stats)`` exactly like the single-chip entry; the
-    per-lane-block ``stats`` arrays concatenate each device's blocks along
+    Returns ``(saves, stats)`` exactly like the single-device entry; the
+    per-block ``stats`` arrays concatenate each device's blocks along
     the block axis (device-major order). For bit-identical results across
     mesh widths pass ``block_b`` dividing the per-device batch (module
     docstring: the lockstep dt chain is per block).
     """
-    y0_rows = jnp.asarray(y0_rows, jnp.float32)
-    _, batch = y0_rows.shape
-    _check_batch(batch, mesh, axis_name)
-    if p_rows is None:
-        p_rows = jnp.zeros((0, batch), jnp.float32)
-    p_rows = jnp.asarray(p_rows, jnp.float32)
+    return _rows_sharded(
+        ensemble_solve_kernel_adaptive, rhs, y0_rows, p_rows, mesh,
+        axis_name, (P(None, None, axis_name), P(axis_name)), kwargs,
+    )
 
-    def local_solve(y_loc, p_loc):
-        return ensemble_solve_kernel_adaptive(rhs, y_loc, p_loc, **kwargs)
 
-    return jax.shard_map(
-        local_solve,
-        mesh=mesh,
-        in_specs=(P(None, axis_name), P(None, axis_name)),
-        out_specs=(P(None, None, axis_name), P(axis_name)),
-        # no collectives inside; the vma checker false-positives on the
-        # lockstep controller's scalar (t, dt) carry, which starts
-        # replicated and becomes shard-varying once it meets member data
-        check_vma=False,
-    )(y0_rows, p_rows)
+@functools.partial(
+    jax.jit, static_argnames=("solve", "mesh", "axis_name", "kwargs")
+)
+def _seip_sharded_jit(y0, params, beta_scales, *, solve, mesh, axis_name,
+                      kwargs):
+    def local_solve(scales_loc):
+        return solve(y0, params, scales_loc, **dict(kwargs))
+
+    # every saved compartment comes back (T, *shape, B) member-last and
+    # every stats array (1,) per device; read the ranks off an abstract eval
+    shapes = jax.eval_shape(
+        local_solve, jax.ShapeDtypeStruct(beta_scales.shape, beta_scales.dtype)
+    )
+    out_specs = jax.tree.map(
+        lambda sd: P(*([None] * (len(sd.shape) - 1)), axis_name), shapes
+    )
+    return _shard_members(
+        local_solve, mesh, (P(*([None] * (beta_scales.ndim - 1)), axis_name),),
+        out_specs, beta_scales,
+    )
+
+
+def _seip_sharded(solve, y0, params, beta_scales, mesh, axis_name, kwargs):
+    beta_scales = jnp.asarray(beta_scales)
+    _check_batch(beta_scales.shape[-1], mesh, axis_name)
+    return _seip_sharded_jit(
+        y0, params, beta_scales, solve=solve, mesh=mesh, axis_name=axis_name,
+        kwargs=_static(kwargs),
+    )
 
 
 def seip_ensemble_solve_sharded(
@@ -144,49 +194,18 @@ def seip_ensemble_solve_sharded(
     axis_name: str = "ensemble",
     **kwargs,
 ):
-    """:func:`~dynode_tpu.ops.seip_pallas.seip_ensemble_solve` over a mesh.
+    """:func:`~dynode_tpu.ops.seip.seip_ensemble_solve` over a mesh.
 
     ``beta_scales`` (``(B,)`` or ``(L, B)``) is sharded along its member
-    axis; ``y0``/``params`` are compiled-in constants exactly as in the
-    single-chip kernel (host values, not traced arrays). Per-device batch
-    must satisfy the kernel's member-tile constraint (multiple of 1024).
-    Returns member-last saves sharded along the member axis
-    (``packed=True`` is not supported here: the packed member-tile
-    bijection is per-device and would not concatenate to the global one).
+    axis; ``y0``/``params`` are shared by every member. Returns member-last
+    saves sharded along the member axis, bit-identical to the
+    single-device solve (each member is solved on its own).
     """
-    from .seip_pallas import seip_ensemble_solve
+    from .seip import seip_ensemble_solve
 
-    if kwargs.get("packed"):
-        raise ValueError(
-            "packed=True is per-device layout; use packed=False when "
-            "sharding (or unpack per shard)"
-        )
-    beta_scales = jnp.asarray(beta_scales)
-    batch = beta_scales.shape[-1]
-    _check_batch(batch, mesh, axis_name)
-    spec = P(*([None] * (beta_scales.ndim - 1)), axis_name)
-
-    def local_solve(scales_loc):
-        return seip_ensemble_solve(y0, params, scales_loc, **kwargs)
-
-    # each saved compartment comes back (T, *shape, B) member-last; derive
-    # the per-output P(None, ..., axis_name) specs from an abstract eval.
-    # This traces the solve twice (eval_shape + shard_map) -- accepted:
-    # it is a one-time setup cost per jitted configuration, and deriving
-    # ranks structurally would have to mirror every save/packed variant
-    # of the kernel's output contract
-    shapes = jax.eval_shape(
-        lambda s: local_solve(s),
-        jax.ShapeDtypeStruct(beta_scales.shape, beta_scales.dtype),
+    return _seip_sharded(
+        seip_ensemble_solve, y0, params, beta_scales, mesh, axis_name, kwargs
     )
-    out_specs = jax.tree.map(
-        lambda sd: P(*([None] * (len(sd.shape) - 1)), axis_name), shapes
-    )
-
-    return jax.shard_map(
-        local_solve, mesh=mesh, in_specs=(spec,), out_specs=out_specs,
-        check_vma=False,
-    )(beta_scales)
 
 
 def seip_ensemble_solve_adaptive_sharded(
@@ -198,44 +217,17 @@ def seip_ensemble_solve_adaptive_sharded(
     axis_name: str = "ensemble",
     **kwargs,
 ):
-    """Adaptive SEIP kernel over a mesh (lockstep BS3(2), error-controlled).
+    """Adaptive SEIP solve over a mesh (lockstep BS3(2), error-controlled).
 
     Same contract as :func:`seip_ensemble_solve_sharded`; returns
-    ``(outs, stats)`` like the single-chip entry, with the per-block
-    ``stats`` arrays concatenated device-major along the block axis. The
-    lockstep dt chain is per 1024-member block, which the device split
-    preserves (per-device batch is a multiple of 1024), so results are
-    bit-identical to the single-device kernel on TPU; the pure-lax
-    fallback runs one global block per device (tolerance-level agreement).
+    ``(outs, stats)`` like the single-device entry, with the ``(1,)``
+    stats arrays concatenated device-major. Each device runs its own
+    lockstep dt chain over its members, so results agree with the
+    single-device solve to the solve tolerance.
     """
-    from .seip_pallas import seip_ensemble_solve_adaptive
+    from .seip import seip_ensemble_solve_adaptive
 
-    if kwargs.get("packed"):
-        raise ValueError(
-            "packed=True is per-device layout; use packed=False when "
-            "sharding (or unpack per shard)"
-        )
-    beta_scales = jnp.asarray(beta_scales)
-    batch = beta_scales.shape[-1]
-    _check_batch(batch, mesh, axis_name)
-    spec = P(*([None] * (beta_scales.ndim - 1)), axis_name)
-
-    def local_solve(scales_loc):
-        return seip_ensemble_solve_adaptive(y0, params, scales_loc, **kwargs)
-
-    outs_shapes, stats_shapes = jax.eval_shape(
-        lambda s: local_solve(s),
-        jax.ShapeDtypeStruct(beta_scales.shape, beta_scales.dtype),
+    return _seip_sharded(
+        seip_ensemble_solve_adaptive, y0, params, beta_scales, mesh,
+        axis_name, kwargs,
     )
-    out_specs = (
-        jax.tree.map(
-            lambda sd: P(*([None] * (len(sd.shape) - 1)), axis_name),
-            outs_shapes,
-        ),
-        jax.tree.map(lambda sd: P(axis_name), stats_shapes),
-    )
-
-    return jax.shard_map(
-        local_solve, mesh=mesh, in_specs=(spec,), out_specs=out_specs,
-        check_vma=False,
-    )(beta_scales)

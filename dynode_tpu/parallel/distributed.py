@@ -1,33 +1,34 @@
-"""Multi-host / multi-slice scaffolding: ``jax.distributed`` + hybrid meshes.
+"""Multi-host scaffolding: ``jax.distributed`` + host-aware meshes.
 
-Single-host meshes (``parallel/mesh.py``) cover one TPU slice, where every
-collective rides ICI. Scaling past one slice (multi-host v5e pods,
-multi-slice deployments) needs two more pieces, both thin by design
-because GSPMD does the heavy lifting:
+Single-host meshes (``parallel/mesh.py``) cover the cards of one machine,
+which NVLink joins all to all. Scaling past one host needs two more
+pieces, both thin by design because GSPMD does the heavy lifting:
 
 1. **Runtime initialization** — ``jax.distributed.initialize()`` so every
-   host sees the global device set. :func:`initialize_distributed` wraps
-   it idempotently and no-ops on a single host, so the same entry script
-   runs unchanged on a laptop, one slice, or a pod.
-2. **Topology-aware mesh layout** — across slices, traffic moves over DCN
-   (data-center network), orders of magnitude slower than ICI. A mesh must
-   therefore put axes with heavy communication INSIDE a slice and only
+   process sees the global device set. :func:`initialize_distributed`
+   wraps it idempotently and no-ops on a single host, so the same entry
+   script runs unchanged on a laptop, one machine, or a cluster. Nothing
+   discovers a GPU cluster automatically: pass ``coordinator_address``,
+   ``num_processes`` and ``process_id``.
+2. **Host-aware mesh layout** — between hosts, traffic moves over the
+   network, far slower than NVLink inside a host. A mesh must therefore
+   keep axes with heavy communication INSIDE a host and put only
    embarrassingly-parallel axes (chains, ensemble members, SVI starts —
-   everything this framework shards) across DCN.
-   :func:`create_hybrid_mesh` builds exactly that split via
-   ``mesh_utils.create_hybrid_device_mesh``.
+   everything this framework shards) across hosts.
+   :func:`create_hybrid_mesh` builds exactly that split, grouping devices
+   by ``process_index``.
 
 For this domain every sharded axis is a batch axis (SURVEY.md section 2.8:
-chain banks, ensemble width, multi-start SVI), so the DCN story is the
-best case: zero cross-slice collectives in the hot loop; only the final
-posterior/summary reductions cross slices. The reference itself has no
+chain banks, ensemble width, multi-start SVI), so the cross-host story is
+the best case: zero cross-host collectives in the hot loop; only the final
+posterior/summary reductions cross hosts. The reference itself has no
 distributed layer at all (no pmap/pjit/mesh anywhere in
-/root/reference/src) — this module is the TPU-native counterpart SURVEY
-section 2.8 item 3 calls for (mesh construction, axis naming, donation
-live in ``mesh.py``; process bootstrap and cross-slice layout here).
+CDCgov/DynODE/src) — this module is the counterpart SURVEY section 2.8
+item 3 calls for (mesh construction, axis naming, donation live in
+``mesh.py``; process bootstrap and cross-host layout here).
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import jax
 import numpy as np
@@ -44,10 +45,11 @@ def initialize_distributed(
 ) -> bool:
     """Idempotent ``jax.distributed.initialize`` wrapper.
 
-    Call once at program start on EVERY host of a multi-host deployment
-    (before any jax computation). With no arguments, auto-detection covers
-    TPU pods launched through standard tooling; on a single host (or when
-    already initialized) this is a no-op returning False.
+    Call once at program start in EVERY process of a multi-host deployment
+    (before any jax computation), with the coordinator's address (e.g.
+    ``"localhost:<port>"`` on one machine), the process count and this
+    process's id. Without arguments on a single process (or when already
+    initialized) this is a no-op returning False.
 
     Returns True iff a multi-process runtime was (or already had been)
     initialized by this call.
@@ -76,77 +78,41 @@ def initialize_distributed(
 
 
 def create_hybrid_mesh(
-    axis_names: Sequence[str] = ("slice", "chain"),
-    dcn_axis: str = "slice",
-    num_slices: Optional[int] = None,
+    axis_names: Sequence[str] = ("host", "chain"),
+    host_axis: str = "host",
+    num_hosts: Optional[int] = None,
     devices=None,
 ) -> Mesh:
-    """Mesh whose ``dcn_axis`` spans slices (DCN) and the rest span ICI.
+    """Mesh whose ``host_axis`` spans hosts and the rest span each host.
 
-    ``num_slices`` defaults to the runtime's slice count (1 on a single
-    slice, where this degenerates to :func:`create_mesh` semantics). All
-    non-DCN axes share the intra-slice device block; with the default
-    2-axis layout the second axis gets all devices of each slice.
+    Devices are grouped by ``process_index`` (one process per host);
+    ``num_hosts`` defaults to the number of processes that own
+    ``devices`` (1 on a single host, where this is a plain
+    :func:`create_mesh` with a size-1 ``host_axis``). The last non-host
+    axis gets all devices of each host; other non-host axes have size 1.
+    Passing ``num_hosts`` splits the device list into that many contiguous
+    blocks instead (a stand-in for hosts on one machine).
 
-    Shard ONLY embarrassingly-parallel batch axes over ``dcn_axis``:
+    Shard ONLY embarrassingly-parallel batch axes over ``host_axis``:
     chains (``MCMC(mesh=...)``), ensemble members, SVI starts. Model/state
-    axes must stay inside a slice — this framework never shards them.
+    axes must stay inside a host — this framework never shards them.
     """
     if devices is None:
         devices = jax.devices()
-    if num_slices is None:
-        # slice_index is absent off-TPU and on single-slice runtimes
-        idxs = {getattr(d, "slice_index", 0) for d in devices}
-        num_slices = len(idxs)
+    # host-major; a stable sort keeps each host's own device order
+    devices = sorted(devices, key=lambda d: d.process_index)
+    if num_hosts is None:
+        num_hosts = len({d.process_index for d in devices})
+    if host_axis not in axis_names:
+        raise ValueError(f"host_axis {host_axis!r} not in {axis_names}")
     n = len(devices)
-    assert n % num_slices == 0, (num_slices, n)
-    per_slice = n // num_slices
-    if dcn_axis not in axis_names:
-        raise ValueError(f"dcn_axis {dcn_axis!r} not in {axis_names}")
-    ici_names = [a for a in axis_names if a != dcn_axis]
-    ici_shape = [1] * len(ici_names)
-    if ici_names:
-        ici_shape[-1] = per_slice
-    if num_slices == 1:
-        # no DCN dimension in play: one contiguous mesh, same axis names
-        shape = [1 if a == dcn_axis else s
-                 for a, s in zip(axis_names,
-                                 _interleave(axis_names, dcn_axis, 1,
-                                             ici_names, ici_shape))]
-        dev_array = np.asarray(devices).reshape(shape)
-        return Mesh(dev_array, tuple(axis_names))
-    mesh_shape = _interleave(axis_names, dcn_axis, 1, ici_names, ici_shape)
-    dcn_shape = _interleave(
-        axis_names, dcn_axis, num_slices, ici_names, [1] * len(ici_names)
-    )
-    topo_slices = len({getattr(d, "slice_index", 0) for d in devices})
-    if topo_slices == num_slices and hasattr(devices[0], "slice_index"):
-        from jax.experimental import mesh_utils
-
-        dev_array = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape, dcn_mesh_shape=dcn_shape, devices=devices
-        )
-    else:
-        # device topology does not report the requested slice split (CPU
-        # harness, forced split, or multi-PROCESS single-slice runs where
-        # the process boundary plays the DCN role): slice-major reshape of
-        # the given device order -- jax enumerates devices process-major,
-        # so contiguous blocks are the closest devices, which is exactly
-        # what the leading DCN axis wants
-        full = tuple(a * b for a, b in zip(dcn_shape, mesh_shape))
-        dev_array = np.asarray(devices).reshape(full)
-    return Mesh(dev_array, tuple(axis_names))
-
-
-def _interleave(
-    axis_names, dcn_axis, dcn_size, ici_names, ici_shape
-) -> Tuple[int, ...]:
-    """Rebuild the full mesh shape with ``dcn_size`` at the DCN position."""
-    out = []
-    it = iter(ici_shape)
-    for a in axis_names:
-        out.append(dcn_size if a == dcn_axis else next(it))
-    return tuple(out)
+    if n % num_hosts:
+        raise ValueError(f"{n} devices do not split over {num_hosts} hosts")
+    shape = [num_hosts if a == host_axis else 1 for a in axis_names]
+    inner = [k for k, a in enumerate(axis_names) if a != host_axis]
+    if inner:
+        shape[inner[-1]] = n // num_hosts
+    return Mesh(np.asarray(devices).reshape(shape), tuple(axis_names))
 
 
 __all__ = ["initialize_distributed", "create_hybrid_mesh"]

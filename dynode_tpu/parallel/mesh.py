@@ -1,12 +1,12 @@
 """Mesh construction and batch-sharding helpers.
 
 The reference has no distributed layer at all (SURVEY.md section 2.8: no
-pmap/pjit/mesh anywhere). On TPU the scaling axes of this domain are
+pmap/pjit/mesh anywhere). The scaling axes of this domain are
 *ensemble width* (vmapped parameter draws) and *chain count* (vectorized NUTS
 chains); both are embarrassingly-parallel batch axes, so the entire
 communication story is GSPMD: we annotate the batch axis with a
-``NamedSharding`` and XLA partitions the one big program across ICI with no
-hand-written collectives.
+``NamedSharding`` and XLA partitions the one big program across the
+devices with no hand-written collectives.
 
 Conventions:
 - mesh axes are named (e.g. ``("chain",)`` or ``("chain", "ensemble")``)
@@ -94,11 +94,11 @@ def jit_donated(fn, donate_argnums=(0,), **jit_kwargs):
     Donation aliases an input buffer to an output (free HBM headroom for
     iterated programs: MCMC chunk carries, warm ensemble loops -- on wide
     banks the carry is the dominant live allocation). CPU ignores
-    donation and warns per call, so this helper only requests it on
-    TPU/GPU; semantics are identical either way, callers just must not
+    donation and warns per call, so this helper only requests it off
+    the CPU; semantics are identical either way, callers just must not
     reuse a donated argument after the call.
     """
-    if jax.default_backend() in ("tpu", "gpu"):
+    if jax.default_backend() != "cpu":
         return jax.jit(fn, donate_argnums=donate_argnums, **jit_kwargs)
     return jax.jit(fn, **jit_kwargs)
 

@@ -1,4 +1,4 @@
-"""Simulation layer: the `simulate()` entry point over the TPU ODE engine.
+"""Simulation layer: the `simulate()` entry point over the in-repo ODE engine.
 
 (reference: src/dynode/simulation/__init__.py:3-8)
 """

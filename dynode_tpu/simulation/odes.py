@@ -181,11 +181,9 @@ def ensemble_rhs(ode: ODE_Eqns, param_axes=0) -> ODE_Eqns:
     """Mechanically rewrite a scalar RHS to the lane-major (batch-last)
     ensemble layout.
 
-    TPU vector registers are (8 sublanes, 128 lanes) tiles; putting the
-    ensemble axis LAST maps the batch onto the lane dimension explicitly.
-    Honest fetch-synchronized measurements (v5e-1): ~1.3x over a
-    batch-leading vmap on the scatter-heavy 640-state SEIP model, but
-    SLOWER on the small multistrain model, where XLA flattens the
+    Putting the ensemble axis LAST makes it the innermost, contiguous
+    dimension of every state array. Which layout is faster depends on the
+    model: on the small multistrain model XLA flattens the
     batch-leading layout's elementwise ops across the whole batch anyway
     -- measure both layouts for your model (bench.py reports all paths).
     This wrapper gives any user-authored RHS the batch-last layout
@@ -264,8 +262,8 @@ def simulate_ensemble(
     - ``"batch_leading"`` (default): ``vmap(simulate)`` with the ensemble
       axis in front; every member gets its own adaptive dt chain.
       ``ys``/``stats``/``result`` gain a LEADING batch axis.
-    - ``"lane_major"``: the ensemble axis is placed LAST on the TPU's
-      128-wide vector lanes (see :func:`ensemble_rhs` for when this wins;
+    - ``"lane_major"``: the ensemble axis is placed LAST, innermost and
+      contiguous (see :func:`ensemble_rhs` for when this wins;
       measure both). One shared dt chain; ``ys`` gain a TRAILING batch
       axis and ``result``/``stats`` are ensemble-wide scalars.
     """

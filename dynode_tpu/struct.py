@@ -11,7 +11,7 @@ in-repo replacement: a thin wrapper over ``dataclasses.dataclass`` +
   program (e.g. ``idx`` namespaces used for compartment indexing).
 
 Changing a static field triggers recompilation, which is exactly the
-semantics compartment-index namespaces need on TPU.
+semantics compartment-index namespaces need.
 """
 
 import dataclasses

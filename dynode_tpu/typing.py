@@ -1,4 +1,4 @@
-"""Shared type vocabulary for DynODE-TPU configs and models.
+"""Shared type vocabulary for dynode_tpu configs and models.
 
 Mirrors the reference type layer (reference: src/dynode/typing/typing.py:11-39)
 with the same aliases and name-validation semantics.

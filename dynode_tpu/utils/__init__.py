@@ -54,7 +54,7 @@ __all__ = [
 
 def __getattr__(name):
     # visualization pulls in matplotlib/seaborn; keep it lazy so headless
-    # TPU jobs never pay the import cost.
+    # accelerator jobs never pay the import cost (matplotlib may be absent).
     if name in {
         "plot_model_overview_subplot_matplotlib",
         "plot_checkpoint_inference_correlation_pairs",

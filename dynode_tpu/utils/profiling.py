@@ -1,6 +1,6 @@
 """Profiling and solver-observability helpers.
 
-The reference has no profiler story (SURVEY.md section 5); on TPU the
+The reference has no profiler story (SURVEY.md section 5); on an accelerator the
 standard tooling is ``jax.profiler`` traces viewed in TensorBoard/Perfetto.
 This module wraps it plus small solver-statistics helpers surfaced from the
 ODE engine's ``Solution.stats``.

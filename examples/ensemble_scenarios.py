@@ -1,10 +1,10 @@
 """The headline workload: 10k scenario trajectories + many-chain NUTS fit.
 
-This is BASELINE.json's "scenario ensemble" configuration as a user-facing
-workflow: sample 10k parameter draws from priors, simulate all of them in
-one program (Pallas whole-solve kernel on TPU, lax.scan fallback elsewhere),
-then fit strain transmission multipliers to synthetic observations with a
-wide bank of vectorized NUTS chains (optionally sharded over a device mesh).
+A scenario ensemble as a user-facing workflow: sample parameter draws from
+priors, simulate all of them in one program (the whole-solve Triton kernel
+on a GPU, its lax.scan reference on the CPU), then fit strain transmission
+multipliers to synthetic observations with a wide bank of vectorized NUTS
+chains (optionally sharded over a device mesh).
 """
 
 import _bootstrap
@@ -18,12 +18,16 @@ from dynode_tpu import simulate
 from dynode_tpu.config import SolverParams
 from dynode_tpu.infer import MCMC, NUTS, handlers
 from dynode_tpu.models.multistrain import (
+    MultistrainRowsRHS,
     multistrain_config,
     multistrain_initial_state,
     multistrain_ode,
     multistrain_odeparams,
+    pack_params,
+    pack_state,
+    unpack_saves,
 )
-from dynode_tpu.ops import ensemble_solve_tsit5, unpack_saves
+from dynode_tpu.ops import ensemble_solve_kernel
 
 FAST = _bootstrap.fast_mode()
 ENSEMBLE = 256 if FAST else 4096
@@ -44,9 +48,11 @@ if __name__ == "__main__":
     prior = dist.TruncatedNormal(loc=1.0, scale=0.15, low=0.6, high=1.6)
     r0_scales = prior.sample(key, (ENSEMBLE,))
     beta = base.beta[None, :] * r0_scales[:, None]
-    saves = ensemble_solve_tsit5(
-        y0, beta, base.sigma, base.gamma, base.omega, base.contact_matrix,
-        batch=ENSEMBLE, duration=float(DURATION), dt=0.5,
+    saves = ensemble_solve_kernel(
+        MultistrainRowsRHS.from_params(base),
+        pack_state(y0, ENSEMBLE),
+        pack_params(beta, base.sigma, base.gamma, base.omega, ENSEMBLE),
+        duration=float(DURATION), dt=0.5,
     )
     s, e, i, r, c = unpack_saves(saves)
     peak_day = jnp.argmax(jnp.diff(c.sum(axis=(2, 3)), axis=0), axis=0)
@@ -86,7 +92,7 @@ if __name__ == "__main__":
         num_warmup=WARMUP,
         num_samples=SAMPLES,
         num_chains=CHAINS,      # wide vectorized chain bank
-        steps_per_call=16,      # bound each on-chip program (TPU watchdog)
+        steps_per_call=16,      # bound each device program's runtime
         progress_bar=True,
     )
     mcmc.run(jax.random.PRNGKey(2), obs_data=obs)

@@ -8,7 +8,7 @@ the constant-step SEIP solve -- and plot the posterior fit against the
 data. ChEES (docs/inference.md) is the wide-bank sampler: all chains take
 the same number of leapfrog steps per iteration with cross-chain
 adaptation, the right shape for hundreds-to-thousands of vectorized
-chains on TPU.
+chains on one device.
 
 Reference counterpart: examples/sir_infer_parameters.py's
 simulate -> noise -> fit loop (/root/reference/examples/

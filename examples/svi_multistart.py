@@ -1,9 +1,9 @@
-"""TPU-scale SVI: a vmapped multi-start bank, mesh-shardable over devices.
+"""Bank-scale SVI: a vmapped multi-start bank, mesh-shardable over devices.
 
 The reference runs SVI as ONE Adam trajectory from one init
 (/root/reference/src/dynode/infer/inference.py:244-302) -- the standard
-failure mode is an ELBO local optimum it silently falls into. On TPU the
-fix is nearly free: run hundreds of independently-initialized optimizations
+failure mode is an ELBO local optimum it silently falls into. On an
+accelerator the fix is nearly free: run hundreds of independently-initialized optimizations
 as a single vmapped program (starts fill the chip the way chain width does
 for MCMC), rank the finished guides by a multi-particle ELBO, and keep the
 winner. ``SVIProcess(num_starts=..., svi_mesh=...)`` wires the same thing
@@ -40,7 +40,7 @@ if __name__ == "__main__":
     incidence = jnp.diff(solution.ys[config_static.idx.r], axis=0)
 
     # shard the start axis over every available device (8 virtual CPU
-    # devices in the test harness; a real v5e slice on TPU)
+    # devices in the test harness; the cards of a multi-GPU host)
     mesh = None
     if len(jax.devices()) > 1 and num_starts % len(jax.devices()) == 0:
         mesh = create_mesh(("start",))

@@ -3,7 +3,7 @@
 Mirrors the reference CI, which literally runs ``python3 examples/sir.py``
 (/root/reference/.github/workflows/test-example.yaml:24-28), extended to all
 scripts so they cannot rot silently. Each runs in a subprocess on local CPU
-(``DYNODE_TPU_FORCE_CPU``) with shrunken inference workloads
+(``JAX_PLATFORMS=cpu``) with shrunken inference workloads
 (``DYNODE_FAST_EXAMPLES``); figures land in a tmp dir.
 """
 
@@ -33,7 +33,7 @@ def test_example_list_is_current():
 def test_example_runs_headless(script, tmp_path):
     env = dict(os.environ)
     env.update(
-        DYNODE_TPU_FORCE_CPU="1",
+        JAX_PLATFORMS="cpu",
         DYNODE_FAST_EXAMPLES="1",
         MPLBACKEND="Agg",
     )

@@ -5,7 +5,7 @@ evaluation to the user's batched function, (b) return per-chain values and
 gradients identical to the generic model-derived potential, and (c) yield
 the same posterior. This is the mechanism behind lane-major (chain-last)
 NUTS: the batched function may transpose to batch-last layouts internally
-for the TPU ensemble-layout speedup.
+for the ensemble-layout speedup.
 """
 
 import jax

@@ -2,7 +2,7 @@
 
 The reference's sampler surface is numpyro NUTS
 (/root/reference/src/dynode/infer/inference.py:149-162); ChEES is this
-repo's wide-bank TPU addition (infer/chees.py). These tests pin (a) the
+repo's wide-bank addition (infer/chees.py). These tests pin (a) the
 Halton jitter sequence, (b) the bank Welford merge against a direct
 covariance, (c) conjugate-posterior recovery through the shared MCMC
 runner in every execution mode (monolithic, chunked, warm-start, mesh),

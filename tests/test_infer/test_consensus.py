@@ -2,8 +2,7 @@
 
 Chains are independent, so disjoint sub-banks of a healthy run estimate the
 same posterior to within Monte-Carlo error; a systematic divergence flags a
-corrupted run (the tunnel-integrity incident, README "Shared-tunnel
-caveats"). These tests pin: healthy runs pass silently, injected bias warns
+corrupted run. These tests pin: healthy runs pass silently, injected bias warns
 loudly, and the guard rails on ``k`` raise.
 """
 

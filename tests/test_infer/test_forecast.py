@@ -1,6 +1,6 @@
 """Forecast utilities: posterior resampling + on-device ensemble quantiles.
 
-TPU-scale analog of the reference's project-forward-with-Predictive step
+Ensemble-scale analog of the reference's project-forward-with-Predictive step
 (/root/reference/examples/sir_infer_parameters.py:157-183).
 """
 
@@ -9,7 +9,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from dynode_tpu.infer import member_quantiles, resample_draws
-from dynode_tpu.ops.seip_pallas import pack_members, unpack_members
 
 
 def test_resample_draws_bootstrap_and_thin():
@@ -29,19 +28,15 @@ def test_member_quantiles_matches_numpy_and_packed_layout():
     key = jax.random.PRNGKey(1)
     member_last = jax.random.normal(key, (5, 2, 2048))  # (T, A, B)
     qs = (0.05, 0.5, 0.95)
-    got = member_quantiles(member_last, qs, member_axes=-1)
+    got = member_quantiles(member_last, qs)  # default: member-last
     want = np.quantile(np.asarray(member_last), qs, axis=-1)
     np.testing.assert_allclose(np.asarray(got), want, atol=1e-6)
 
-    # packed member-tile layout (B a multiple of ops.BLOCK): quantiles are
-    # member-permutation-invariant
-    packed = pack_members(member_last)  # (T, A, 8, 256)
-    got_packed = member_quantiles(packed, qs)  # default (-2, -1)
-    np.testing.assert_allclose(np.asarray(got_packed), want, atol=1e-6)
-    # round-trip sanity: pack/unpack is a bijection on the member axis
-    np.testing.assert_array_equal(
-        np.asarray(unpack_members(packed)), np.asarray(member_last)
-    )
+    # members split over two axes (any order): quantiles are
+    # member-permutation-invariant, so both axes flatten into one
+    split = jnp.moveaxis(member_last.reshape(5, 2, 256, 8), -1, 1)
+    got_split = member_quantiles(split, qs, member_axes=(1, -1))
+    np.testing.assert_allclose(np.asarray(got_split), want, atol=1e-6)
 
 
 def test_member_quantiles_bf16_saves_compute_in_f32():

@@ -1,7 +1,7 @@
 """Vmapped multi-start SVI (infer/svi.py run_multistart).
 
-One program runs N independent jittered-init optimizations (TPU-scale SVI:
-starts fill the chip the way chain width does for MCMC); the winner is the
+One program runs N independent jittered-init optimizations (bank-scale SVI:
+starts fill the device the way chain width does for MCMC); the winner is the
 start with the best multi-particle final ELBO. Tests pin:
 
 - the bank recovers a known conjugate posterior from every surviving start,

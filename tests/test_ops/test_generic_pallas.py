@@ -2,26 +2,25 @@
 
 The rows-RHS contract is validated three ways: against the generic ODE
 engine (`simulate`) on SIR, against the closed form on a time-dependent
-forcing (stage times), and against the specialized multistrain kernel's
-reference (the hand kernel is a special case of the generic engine).
+forcing (stage times), and against the multistrain model solved by the
+generic engine. The Triton kernel itself runs here with ``interpret=True``
+and is compared with the ``lax`` reference; on a GPU ``chip_smoke.py``
+compares the compiled kernel with the same reference.
 """
-
-import functools
-import unittest.mock as um
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
 
 import dynode_tpu.ops.generic_pallas as gp
-import dynode_tpu.ops.multistrain_pallas as mp
 from dynode_tpu import simulate
 from dynode_tpu.config import SolverParams
+from dynode_tpu.models import multistrain as ms
 from dynode_tpu.models.multistrain import (
     multistrain_config,
     multistrain_initial_state,
+    multistrain_ode,
     multistrain_odeparams,
 )
 
@@ -144,35 +143,32 @@ def test_methods_agree_on_smooth_problem(method):
 
 
 def test_generic_reproduces_multistrain_kernel():
-    """The hand multistrain kernel is a special case of the generic engine."""
-    cfg = multistrain_config(solver_params=SolverParams(step_budget=64))
+    """The multistrain model in rows form, solved by the generic engine,
+    is the same trajectory as ``simulate(multistrain_ode)``."""
+    cfg = multistrain_config(
+        solver_params=SolverParams(constant_step_size=0.5)
+    )
     par = multistrain_odeparams(cfg)
     y0 = multistrain_initial_state(cfg)
-    B, A, K = 8, mp.A_DIM, mp.K_DIM
-    beta = par.beta[None, :] * jnp.linspace(0.8, 1.2, B)[:, None]
-    y_packed = mp.pack_state(y0, B)
-    p_packed = mp.pack_params(beta, par.sigma, par.gamma, par.omega, B)
-    contact = tuple(
-        tuple(float(v) for v in row) for row in np.asarray(par.contact_matrix)
-    )
-
-    def rhs(y, p, t):
-        return mp._rhs_rows(
-            y, contact,
-            p[:K], p[K : 2 * K], p[2 * K : 3 * K], p[3 * K : 4 * K],
-            A, K,
-        )
-
+    B = 8
+    scales = jnp.linspace(0.8, 1.2, B)
+    beta = par.beta[None, :] * scales[:, None]
     got = gp.ensemble_solve_kernel_reference(
-        rhs, y_packed, p_packed, duration=50.0, dt=0.5,
+        ms.MultistrainRowsRHS.from_params(par),
+        ms.pack_state(y0, B),
+        ms.pack_params(beta, par.sigma, par.gamma, par.omega, B),
+        duration=50.0, dt=0.5,
     )
-    want = mp.ensemble_solve_reference(
-        y0, beta, par.sigma, par.gamma, par.omega, par.contact_matrix,
-        batch=B, duration=50.0, dt=0.5,
-    )
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=1e-6, atol=1e-7
-    )
+    c = ms.unpack_saves(got)[4]  # (T, B, A, K)
+    for member in (0, 5):
+        p = par.replace(beta=par.beta * scales[member])
+        sol = simulate(
+            multistrain_ode, 50, y0, p, cfg.parameters.solver_params
+        )
+        np.testing.assert_allclose(
+            np.asarray(c[:, member]), np.asarray(sol.ys[4]),
+            rtol=1e-5, atol=1e-4,
+        )
 
 
 def test_kernel_interpret_matches_reference():
@@ -181,15 +177,9 @@ def test_kernel_interpret_matches_reference():
     ref = gp.ensemble_solve_kernel_reference(
         sir_rhs, y0, p, duration=20.0, dt=0.5,
     )
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out = gp.ensemble_solve_kernel(
-                sir_rhs, y0, p, duration=20.0, dt=0.5, block_b=128,
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out = gp.ensemble_solve_kernel(
+        sir_rhs, y0, p, duration=20.0, dt=0.5, block_b=128, interpret=True,
+    )
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(ref), rtol=2e-6, atol=1e-7
     )
@@ -205,15 +195,10 @@ def test_kernel_interpret_time_dependent_and_params_none():
     ref = gp.ensemble_solve_kernel_reference(
         rhs, y0, None, duration=4.0, dt=0.25, t0=0.5,
     )
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out = gp.ensemble_solve_kernel(
-                rhs, y0, None, duration=4.0, dt=0.25, t0=0.5, block_b=128,
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out = gp.ensemble_solve_kernel(
+        rhs, y0, None, duration=4.0, dt=0.25, t0=0.5, block_b=128,
+        interpret=True,
+    )
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(ref), rtol=2e-6, atol=1e-7
     )
@@ -268,16 +253,10 @@ def test_adaptive_kernel_interpret_matches_reference():
     ref, rstats = gp.ensemble_solve_kernel_adaptive_reference(
         sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
     )
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out, stats = gp.ensemble_solve_kernel_adaptive(
-                sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
-                block_b=128,
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out, stats = gp.ensemble_solve_kernel_adaptive(
+        sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
+        block_b=128, interpret=True,
+    )
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(ref), rtol=2e-6, atol=1e-7
     )
@@ -299,27 +278,21 @@ def test_adaptive_budget_exhaustion_emits_nans_and_flags():
     assert not nan_slots[0]  # the initial state is always emitted
 
 
-def test_adaptive_bf16_saves_and_t0(monkeypatch):
+def test_adaptive_bf16_saves_and_t0():
     B = 128
     y0, p = _sir_rows(B, seed=7)
     ref, _ = gp.ensemble_solve_kernel_adaptive_reference(
         sir_rhs, y0, p, duration=10.0, rtol=1e-5, atol=1e-8, t0=3.0,
     )
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out, _ = gp.ensemble_solve_kernel_adaptive(
-                sir_rhs, y0, p, duration=10.0, rtol=1e-5, atol=1e-8,
-                block_b=128, save_dtype=jnp.bfloat16, t0=3.0,
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out, _ = gp.ensemble_solve_kernel_adaptive(
+        sir_rhs, y0, p, duration=10.0, rtol=1e-5, atol=1e-8,
+        block_b=128, save_dtype=jnp.bfloat16, t0=3.0, interpret=True,
+    )
     assert out.dtype == jnp.bfloat16
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(ref), rtol=0, atol=5e-3
     )
-    # CPU fallback honors save_dtype too
+    # the CPU (lax) route honors save_dtype too
     fb, _ = gp.ensemble_solve_kernel_adaptive(
         sir_rhs, y0, p, duration=10.0, save_dtype=jnp.bfloat16, t0=3.0,
     )
@@ -327,25 +300,19 @@ def test_adaptive_bf16_saves_and_t0(monkeypatch):
 
 
 def test_constant_kernel_bf16_pipelined_saves():
-    """save_dtype plumbs through the (now pipelined) constant-step kernel."""
+    """save_dtype plumbs through the constant-step kernel's stores."""
     B = 128
     y0, p = _sir_rows(B, seed=8)
     ref = gp.ensemble_solve_kernel_reference(
         sir_rhs, y0, p, duration=20.0, dt=0.5,
     )
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out32 = gp.ensemble_solve_kernel(
-                sir_rhs, y0, p, duration=20.0, dt=0.5, block_b=128,
-            )
-            out16 = gp.ensemble_solve_kernel(
-                sir_rhs, y0, p, duration=20.0, dt=0.5, block_b=128,
-                save_dtype=jnp.bfloat16,
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out32 = gp.ensemble_solve_kernel(
+        sir_rhs, y0, p, duration=20.0, dt=0.5, block_b=128, interpret=True,
+    )
+    out16 = gp.ensemble_solve_kernel(
+        sir_rhs, y0, p, duration=20.0, dt=0.5, block_b=128,
+        save_dtype=jnp.bfloat16, interpret=True,
+    )
     np.testing.assert_allclose(
         np.asarray(out32), np.asarray(ref), rtol=2e-6, atol=1e-7
     )
@@ -356,19 +323,13 @@ def test_constant_kernel_bf16_pipelined_saves():
 
 
 def test_adaptive_multiblock_interpret_lockstep_per_block():
-    """Two lane blocks carry independent dt chains; members still accurate."""
+    """Two member blocks carry independent dt chains; members still accurate."""
     B = 256
     y0, p = _sir_rows(B, seed=9)
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out, stats = gp.ensemble_solve_kernel_adaptive(
-                sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
-                block_b=128,
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out, stats = gp.ensemble_solve_kernel_adaptive(
+        sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
+        block_b=128, interpret=True,
+    )
     assert stats["n_accepted"].shape == (2,)
     gold = gp.ensemble_solve_kernel_reference(
         sir_rhs, y0, p, duration=20.0, dt=0.01,
@@ -385,16 +346,10 @@ def test_save_rows_constant_step_interpret():
     full = gp.ensemble_solve_kernel_reference(
         sir_rhs, y0, p, duration=10.0, dt=0.5,
     )
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out = gp.ensemble_solve_kernel(
-                sir_rhs, y0, p, duration=10.0, dt=0.5, block_b=128,
-                save_rows=(2, 0),
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out = gp.ensemble_solve_kernel(
+        sir_rhs, y0, p, duration=10.0, dt=0.5, block_b=128, interpret=True,
+        save_rows=(2, 0),
+    )
     assert out.shape == (11, 2, B)
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(full[:, [2, 0], :]), rtol=2e-6, atol=1e-7
@@ -418,16 +373,10 @@ def test_save_rows_adaptive_interpret():
     ref, rstats = gp.ensemble_solve_kernel_adaptive_reference(
         sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
     )
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            out, stats = gp.ensemble_solve_kernel_adaptive(
-                sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
-                block_b=128, save_rows=(1,),
-            )
-    finally:
-        gp.pl.pallas_call = orig
+    out, stats = gp.ensemble_solve_kernel_adaptive(
+        sir_rhs, y0, p, duration=20.0, rtol=1e-5, atol=1e-8,
+        block_b=128, save_rows=(1,), interpret=True,
+    )
     assert out.shape == (21, 1, B)
     np.testing.assert_allclose(
         np.asarray(out[:, 0]), np.asarray(ref[:, 1]), rtol=2e-6, atol=1e-7
@@ -435,65 +384,6 @@ def test_save_rows_adaptive_interpret():
     # same controller decisions as the unrestricted solve
     for key in ("exhausted_intervals", "n_accepted", "n_rejected"):
         assert int(stats[key][0]) == int(rstats[key][0]), key
-
-
-def test_padded_rows_constant_step_interpret():
-    """padded_rows=True returns the 8-padded buffer with zero pad rows.
-
-    The exact-rows result is a full-size post-kernel copy (Mosaic save
-    DMAs need 8-aligned row tiles); padded_rows skips it -- the max-width
-    lever when the save buffer bounds the ensemble.
-    """
-    B = 128
-    y0, p = _sir_rows(B, seed=13)
-    orig = pl.pallas_call
-    gp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(gp.jax, "default_backend", lambda: "tpu"):
-            exact = gp.ensemble_solve_kernel(
-                sir_rhs, y0, p, duration=10.0, dt=0.5, block_b=128,
-                save_rows=(2, 0),
-            )
-            padded = gp.ensemble_solve_kernel(
-                sir_rhs, y0, p, duration=10.0, dt=0.5, block_b=128,
-                save_rows=(2, 0), padded_rows=True,
-            )
-    finally:
-        gp.pl.pallas_call = orig
-    assert padded.shape == (11, 8, B)
-    np.testing.assert_array_equal(
-        np.asarray(padded[:, :2]), np.asarray(exact)
-    )
-    assert not np.any(np.asarray(padded[:, 2:]))
-
-
-def test_padded_rows_cpu_fallback_matches_layout():
-    """The CPU fallback replicates the kernel's padded layout exactly."""
-    B = 64
-    y0, p = _sir_rows(B, seed=14)
-    exact = gp.ensemble_solve_kernel(
-        sir_rhs, y0, p, duration=10.0, dt=0.5, save_rows=(1,),
-    )
-    padded = gp.ensemble_solve_kernel(
-        sir_rhs, y0, p, duration=10.0, dt=0.5, save_rows=(1,),
-        padded_rows=True,
-    )
-    assert padded.shape == (11, 8, B)
-    np.testing.assert_array_equal(np.asarray(padded[:, :1]), np.asarray(exact))
-    assert not np.any(np.asarray(padded[:, 1:]))
-    # adaptive variant, same contract
-    exact_a, _ = gp.ensemble_solve_kernel_adaptive(
-        sir_rhs, y0, p, duration=10.0, rtol=1e-5, atol=1e-8, save_rows=(1,),
-    )
-    padded_a, _ = gp.ensemble_solve_kernel_adaptive(
-        sir_rhs, y0, p, duration=10.0, rtol=1e-5, atol=1e-8, save_rows=(1,),
-        padded_rows=True,
-    )
-    assert padded_a.shape == (11, 8, B)
-    np.testing.assert_array_equal(
-        np.asarray(padded_a[:, :1]), np.asarray(exact_a)
-    )
-    assert not np.any(np.asarray(padded_a[:, 1:]))
 
 
 def test_save_rows_validation():
@@ -506,3 +396,114 @@ def test_save_rows_validation():
         gp.ensemble_solve_kernel(
             sir_rhs, y0, duration=1.0, dt=0.5, save_rows=(),
         )
+
+
+@pytest.mark.parametrize("block_b", [128, 256])
+@pytest.mark.parametrize("method", ["rk4", "tsit5", "bosh3"])
+def test_triton_interpret_methods_and_blocks(method, block_b):
+    """Every constant-step tableau, one and several member blocks, and a
+    batch that is not a multiple of the block (padded by the wrapper)."""
+    B = 300
+    y0, p = _sir_rows(B, seed=15)
+    ref = gp.ensemble_solve_kernel_reference(
+        sir_rhs, y0, p, duration=8.0, dt=0.5, method=method,
+    )
+    out = gp.ensemble_solve_kernel(
+        sir_rhs, y0, p, duration=8.0, dt=0.5, method=method,
+        block_b=block_b, interpret=True,
+    )
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(
+        np.asarray(out), np.asarray(ref), rtol=2e-6, atol=1e-7
+    )
+
+
+def test_adaptive_interpret_padding_keeps_block_decisions():
+    """Padding repeats the last member, so the padded last block makes the
+    same controller decisions as that block solved alone."""
+    B = 96
+    y0, p = _sir_rows(B, seed=16)
+    kw = dict(duration=10.0, rtol=1e-5, atol=1e-8, interpret=True)
+    out, stats = gp.ensemble_solve_kernel_adaptive(
+        sir_rhs, y0, p, block_b=64, **kw
+    )
+    assert out.shape == (11, 3, B) and stats["n_accepted"].shape == (2,)
+    tail, tail_stats = gp.ensemble_solve_kernel_adaptive(
+        sir_rhs, y0[:, 64:], p[:, 64:], block_b=32, **kw
+    )
+    np.testing.assert_array_equal(np.asarray(out[..., 64:]), np.asarray(tail))
+    for key in ("n_accepted", "n_rejected"):
+        assert int(stats[key][1]) == int(tail_stats[key][0]), key
+
+
+def test_kernel_route_selection():
+    """One selection point: GPU -> Triton kernel, CPU -> lax, else error."""
+    assert gp.kernel_route("gpu") == "triton"
+    assert gp.kernel_route("cpu") == "lax"
+    assert gp.kernel_route() == "lax"  # the tests run on the CPU
+    for other in ("rocm", "metal", "neuron"):
+        with pytest.raises(ValueError, match="no whole-solve route"):
+            gp.kernel_route(other)
+
+
+def test_cpu_route_is_the_lax_reference():
+    B = 64
+    y0, p = _sir_rows(B, seed=17)
+    out = gp.ensemble_solve_kernel(sir_rhs, y0, p, duration=6.0, dt=0.5)
+    ref = gp.ensemble_solve_kernel_reference(
+        sir_rhs, y0, p, duration=6.0, dt=0.5
+    )
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    out_a, st = gp.ensemble_solve_kernel_adaptive(
+        sir_rhs, y0, p, duration=6.0
+    )
+    ref_a, st_r = gp.ensemble_solve_kernel_adaptive_reference(
+        sir_rhs, y0, p, duration=6.0
+    )
+    np.testing.assert_array_equal(np.asarray(out_a), np.asarray(ref_a))
+    assert st["n_accepted"].shape == (1,)
+
+
+def test_launch_config_rule():
+    """One member per thread: block_b // 32 warps, at most 8; the default
+    block shrinks to the next power of two for a small ensemble."""
+    assert gp.launch_config(655360) == (gp.DEFAULT_BLOCK_B, 4)
+    assert gp.launch_config(655360, 64) == (64, 2)
+    assert gp.launch_config(655360, 256) == (256, 8)
+    assert gp.launch_config(655360, 512) == (512, 8)
+    assert gp.launch_config(10) == (32, 1)
+    assert gp.launch_config(100) == (128, 4)
+    assert gp.launch_config(50) == (64, 2)
+    with pytest.raises(ValueError, match="power of two"):
+        gp.launch_config(1000, 100)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_gpu_route_lowers_to_triton_for_cuda(monkeypatch, adaptive):
+    """The GPU route of the public entry points lowers for CUDA from here:
+    the multistrain rows RHS traces into Triton IR (an operation the
+    Triton route cannot lower fails at this step, before any card)."""
+    monkeypatch.setattr(gp, "kernel_route", lambda platform=None: "triton")
+    cfg = multistrain_config()
+    base = multistrain_odeparams(cfg)
+    rhs = ms.MultistrainRowsRHS.from_params(base)
+    B = 1000
+    y_rows = ms.pack_state(multistrain_initial_state(cfg), B)
+    p_rows = ms.pack_params(base.beta, base.sigma, base.gamma, base.omega, B)
+    obs = tuple(range(ms.n_state_rows() - 6, ms.n_state_rows()))
+    if adaptive:
+        def solve(y, p):
+            return gp.ensemble_solve_kernel_adaptive(
+                rhs, y, p, duration=20.0, save_rows=obs
+            )
+    else:
+        def solve(y, p):
+            return gp.ensemble_solve_kernel(
+                rhs, y, p, duration=20.0, dt=0.5, save_rows=obs
+            )
+    with jax.enable_x64(False):
+        text = jax.jit(solve).trace(y_rows, p_rows).lower(
+            lowering_platforms=("cuda",)
+        ).as_text()
+    assert text.count("@__gpu$xla.gpu.triton(") == 1
+    assert "dynode_whole_solve" in text

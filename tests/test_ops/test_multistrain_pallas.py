@@ -1,19 +1,17 @@
-"""Pallas ensemble-kernel correctness (interpret mode on CPU).
+"""The multistrain model on the whole-solve ensemble integrator.
 
-The real-TPU performance path is exercised by bench.py; here we verify the
-kernel's arithmetic against (a) the identical lane-major lax.scan reference
-and (b) the generic adaptive ODE engine.
+The rows form of the model (``models.multistrain.MultistrainRowsRHS``) is
+checked against the generic adaptive ODE engine through the ``lax``
+reference, and the Triton kernel (interpret mode on CPU) against that
+reference. ``chip_smoke.py`` runs the same comparison compiled on a GPU.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
 
-import dynode_tpu.ops.multistrain_pallas as mp
+import dynode_tpu.models.multistrain as mp
 from dynode_tpu import simulate
 from dynode_tpu.config import SolverParams
 from dynode_tpu.models.multistrain import (
@@ -22,6 +20,7 @@ from dynode_tpu.models.multistrain import (
     multistrain_ode,
     multistrain_odeparams,
 )
+from dynode_tpu.ops import ensemble_solve_kernel, ensemble_solve_kernel_reference
 
 
 @pytest.fixture(scope="module")
@@ -32,10 +31,23 @@ def setup():
     return cfg, p, y0
 
 
+def _solve(y0, p, *, batch, duration, dt, beta=None, n_age=2, n_strain=3,
+           **kw):
+    """Pack, solve with the rows RHS, return the packed (T, R, B) saves."""
+    beta = p.beta if beta is None else beta
+    solve = ensemble_solve_kernel if kw else ensemble_solve_kernel_reference
+    return solve(
+        mp.MultistrainRowsRHS.from_params(p),
+        mp.pack_state(y0, batch, n_age, n_strain),
+        mp.pack_params(beta, p.sigma, p.gamma, p.omega, batch, n_strain),
+        duration=duration, dt=dt, **kw,
+    )
+
+
 def test_pack_unpack_roundtrip(setup):
     _, _, y0 = setup
     packed = mp.pack_state(y0, 8)
-    assert packed.shape == (mp.D_ROWS, 8)
+    assert packed.shape == (mp.n_state_rows(), 8)
     s, e, i, r, c = mp.unpack_saves(packed[None])
     np.testing.assert_allclose(np.asarray(s[0, 3]), np.asarray(y0[0]), rtol=1e-6)
     np.testing.assert_allclose(np.asarray(i[0, 5]), np.asarray(y0[2]), rtol=1e-6)
@@ -43,10 +55,7 @@ def test_pack_unpack_roundtrip(setup):
 
 def test_lane_major_reference_matches_engine(setup):
     cfg, p, y0 = setup
-    saves = mp.ensemble_solve_reference(
-        y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-        batch=4, duration=100.0, dt=0.25,
-    )
+    saves = _solve(y0, p, batch=4, duration=100.0, dt=0.25)
     s, e, i, r, c = mp.unpack_saves(saves)
     ref = simulate(multistrain_ode, 100, y0, p, cfg.parameters.solver_params)
     np.testing.assert_allclose(
@@ -62,10 +71,7 @@ def test_per_member_parameters_differ(setup):
     B = 4
     scales = jnp.array([0.8, 1.0, 1.2, 1.4])
     beta = p.beta[None, :] * scales[:, None]
-    saves = mp.ensemble_solve_reference(
-        y0, beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-        batch=B, duration=100.0, dt=0.5,
-    )
+    saves = _solve(y0, p, beta=beta, batch=B, duration=100.0, dt=0.5)
     _, _, _, _, c = mp.unpack_saves(saves)
     finals = np.asarray(c[-1].sum(axis=(1, 2)))
     assert finals[0] < finals[1] < finals[2] < finals[3]
@@ -73,22 +79,12 @@ def test_per_member_parameters_differ(setup):
 
 def test_pallas_kernel_interpret_matches_reference(setup):
     _, p, y0 = setup
-    orig = pl.pallas_call
-    pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        out = mp.ensemble_solve_tsit5(
-            y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-            batch=128, duration=3.0, dt=1.0, block_b=128,
-        )
-        ref = mp.ensemble_solve_reference(
-            y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-            batch=128, duration=3.0, dt=1.0,
-        )
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=2e-6, rtol=1e-5
-        )
-    finally:
-        pl.pallas_call = orig
+    out = _solve(y0, p, batch=128, duration=3.0, dt=1.0, block_b=128,
+                 interpret=True)
+    ref = _solve(y0, p, batch=128, duration=3.0, dt=1.0)
+    np.testing.assert_allclose(
+        np.asarray(out), np.asarray(ref), atol=2e-6, rtol=1e-5
+    )
 
 
 def test_generalized_dims_reference():
@@ -110,10 +106,8 @@ def test_generalized_dims_reference():
     )
     p = params_fn(cfg)
     y0 = init_fn(cfg)
-    saves = mp.ensemble_solve_reference(
-        y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-        batch=4, duration=50.0, dt=0.5, n_age=3, n_strain=2,
-    )
+    saves = _solve(y0, p, batch=4, duration=50.0, dt=0.5, n_age=3,
+                   n_strain=2)
     s, e, i, r, c = mp.unpack_saves(saves, n_age=3, n_strain=2)
     assert s.shape == (51, 4, 3) and c.shape == (51, 4, 3, 2)
     ref = simulate(multistrain_ode, 50, y0, p, cfg.parameters.solver_params)
@@ -145,81 +139,21 @@ def test_lane_major_xla_ensemble_matches_scalar():
         )
 
 
-def test_2d_tile_kernel_matches_row_reference(setup):
-    """The 2-D whole-tile kernel variant (kept as a measured negative
-    result -- see the module comment) must still be the same arithmetic:
-    2-D scan reference vs row reference, and interpret-mode Pallas vs the
-    2-D reference."""
-    _, p, y0 = setup
-    saves2 = mp.ensemble_solve_tsit5_2d(
-        y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-        batch=4, duration=50.0, dt=0.25,
-    )
-    got = mp.unpack_saves_2d(saves2)
-    saves1 = mp.ensemble_solve_reference(
-        y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-        batch=4, duration=50.0, dt=0.25,
-    )
-    want = mp.unpack_saves(saves1)
-    for a, b in zip(want, got):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-5, atol=1e-4
-        )
-
-    import unittest.mock as um
-
-    orig = pl.pallas_call
-    mp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        with um.patch.object(mp.jax, "default_backend", lambda: "tpu"):
-            out = mp.ensemble_solve_tsit5_2d(
-                y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-                batch=256, duration=10.0, dt=0.5, block_b=128,
-            )
-    finally:
-        mp.pl.pallas_call = orig
-    ref = mp.ensemble_solve_tsit5_2d(
-        y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-        batch=256, duration=10.0, dt=0.5,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=2e-5, atol=1e-4
-    )
-
-
-def test_pick_block_b_prefers_measured_sweet_spot():
-    # 2048-lane blocks are the measured v5e optimum (block sweep probe);
-    # fall down the divisor ladder when batch isn't 2048-aligned
-    assert mp.pick_block_b(79872) == 2048   # 39 * 2048
-    assert mp.pick_block_b(163840) == 2048
-    assert mp.pick_block_b(1024) == 1024
-    assert mp.pick_block_b(9984) == 256     # 39 * 256, not 512-aligned
-    assert mp.pick_block_b(512) == 512
-    # auto-pick (block_b=None) must produce a valid divisor in all cases
-    for b in (256, 768, 9984, 79872):
-        assert b % mp.pick_block_b(b) == 0
-
-
 def test_auto_block_b_interpret_matches_reference(setup):
-    """block_b=None routes through pick_block_b and stays member-exact."""
-    import functools as ft
-    import unittest.mock as um
-
+    """block_b=None routes through launch_config and stays member-exact."""
     _, p, y0 = setup
-    orig = pl.pallas_call
-    mp.pl.pallas_call = ft.partial(orig, interpret=True)
-    try:
-        with um.patch.object(mp.jax, "default_backend", lambda: "tpu"):
-            out = mp.ensemble_solve_tsit5(
-                y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-                batch=512, duration=10.0, dt=0.5,  # auto block_b -> 512
-            )
-    finally:
-        mp.pl.pallas_call = orig
-    ref = mp.ensemble_solve_reference(
-        y0, p.beta, p.sigma, p.gamma, p.omega, p.contact_matrix,
-        batch=512, duration=10.0, dt=0.5,
-    )
+    out = _solve(y0, p, batch=512, duration=10.0, dt=0.5, interpret=True)
+    ref = _solve(y0, p, batch=512, duration=10.0, dt=0.5)
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(ref), rtol=2e-5, atol=1e-4
     )
+
+
+def test_rows_rhs_is_hashable_by_value(setup):
+    """Equal models share one compiled program (the RHS is a jit key)."""
+    _, p, _ = setup
+    a = mp.MultistrainRowsRHS.from_params(p)
+    b = mp.MultistrainRowsRHS.from_params(p)
+    assert a == b and hash(a) == hash(b)
+    assert (a.n_age, a.n_strain) == (2, 3)
+    assert a != mp.MultistrainRowsRHS(a.contact, 2, 2)

@@ -1,11 +1,9 @@
-"""Adaptive (lockstep-dt) SEIP kernel: CPU fallback contract tests.
+"""Adaptive (lockstep-dt) SEIP ensemble solve: contract tests.
 
-On CPU ``seip_ensemble_solve_adaptive`` routes to the pure-JAX lockstep
-BS3(2) reference (one global block); these tests pin its accuracy against
-a dense-grid RK4 oracle and the budget-exhaustion / save-selection /
-packing contracts. Kernel-vs-fallback agreement on real TPU is gated in
-bench_seip.py before any adaptive timing is reported (same pattern as the
-constant-step kernel).
+``seip_ensemble_solve_adaptive`` is the pure-JAX lockstep BS3(2) solve
+(one dt chain over the ensemble); these tests pin its accuracy against a
+dense-grid RK4 oracle and the budget-exhaustion / save-selection / dtype
+contracts.
 """
 
 import jax
@@ -19,10 +17,9 @@ from dynode_tpu.models.seip import (
     seip_initial_state,
     seip_odeparams,
 )
-from dynode_tpu.ops.seip_pallas import (
+from dynode_tpu.ops.seip import (
     seip_ensemble_solve_adaptive,
     seip_solve_reference,
-    unpack_members,
 )
 
 
@@ -110,19 +107,6 @@ def test_save_selection_packing_and_dtype(setup):
         atol=1e-2,
     )
 
-    # packed layout round-trips through unpack_members; member count must
-    # be a multiple of 1024 for the (8, 128*nb) tile factorization
-    sc = jnp.linspace(0.9, 1.1, 1024, dtype=jnp.float32)
-    pk, _ = seip_ensemble_solve_adaptive(
-        y0, p, sc, duration=3, rtol=1e-4, atol=1e-3, save=(3,), packed=True
-    )
-    up, _ = seip_ensemble_solve_adaptive(
-        y0, p, sc, duration=3, rtol=1e-4, atol=1e-3, save=(3,)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(unpack_members(pk[0])), np.asarray(up[0])
-    )
-
 
 def test_duration_must_be_save_multiple(setup):
     p, y0, scales = setup
@@ -130,62 +114,3 @@ def test_duration_must_be_save_multiple(setup):
         seip_ensemble_solve_adaptive(
             y0, p, scales, duration=10.5, save_every=1.0
         )
-
-
-def test_adaptive_kernel_interpret_matches_lockstep_reference(setup):
-    """Execute the ACTUAL Pallas kernel (interpret mode) on CPU.
-
-    The TPU equivalence gate lives in bench_seip; this is the only CI
-    coverage of the kernel's control flow (startup DMAs, pl.when-guarded
-    attempts, SMEM norm hand-off, pipelined save DMAs, flag tile). The
-    kernel steps in f32 while the x64 reference decides dt in f64, so
-    agreement is tolerance-scale, not bitwise.
-    """
-    import functools
-
-    from jax.experimental import pallas as pl
-
-    import dynode_tpu.ops.seip_pallas as sp
-
-    p, y0, _ = setup
-    P, dims, seasonal = sp._static_params(p)
-    # per-strain rows differ (round 4: the kernel takes (L, B) scale banks
-    # -- the posterior-predictive forecast shape) so this also covers the
-    # per-strain lam path
-    L = dims[-1]
-    scales = jnp.stack(
-        [
-            jnp.linspace(0.9 + 0.02 * l, 1.1 - 0.02 * l, 1024)
-            for l in range(L)
-        ]
-    ).astype(jnp.float32)
-    y0p = tuple(
-        sp.pack_members(
-            jnp.broadcast_to(
-                jnp.asarray(c, jnp.float32)[..., None], c.shape + (1024,)
-            )
-        )
-        for c in y0
-    )
-    scp = sp.pack_members(scales)
-    orig = pl.pallas_call
-    sp.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        outs, flags = sp._solve_adaptive(
-            y0p, scp, P=P, dims=dims, seasonal=seasonal,
-            duration=3.0, save_every=1.0, rtol=1e-4, atol=1e-3, dt0=0.125,
-            steps_per_save=8, save_mask=(False, False, False, True),
-            save_dtype="float32",
-        )
-    finally:
-        sp.pl.pallas_call = orig
-    flags = np.asarray(flags)
-    assert flags[0, 0, 0] == 0  # no exhausted intervals
-    assert flags[0, 0, 1] >= 3  # at least one accepted step per interval
-    c_kernel = np.asarray(sp.unpack_members(outs[0]), np.float64)
-    ref, stats = sp.seip_solve_adaptive_reference(
-        y0, p, scales, duration=3.0, rtol=1e-4, atol=1e-3, dt0=0.125
-    )
-    c_ref = np.asarray(ref[3], np.float64)
-    rel = np.max(np.abs(c_kernel - c_ref)) / np.max(np.abs(c_ref))
-    assert rel < 1e-3, rel

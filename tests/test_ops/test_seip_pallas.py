@@ -1,11 +1,10 @@
-"""SEIP whole-solve kernel: reference-path correctness (CPU).
+"""SEIP constant-step ensemble solve (XLA on every platform).
 
-On CPU ``seip_ensemble_solve`` falls back to the RK4 lax.scan reference;
-these tests pin that reference against the production ``seip_ode`` RHS
-solved by the generic engine (same model family, independent time
-integration), plus the packing round-trip. Kernel-vs-reference
-member-for-member equivalence runs on TPU (bench_seip.py asserts it
-before timing).
+``seip_ensemble_solve`` is the RK4 lax.scan reference; these tests pin it
+against the production ``seip_ode`` RHS solved by the generic engine (same
+model family, independent time integration) and check save selection,
+save dtype and mass conservation. ``chip_smoke.py`` repeats the engine
+comparison on a GPU.
 """
 
 import jax
@@ -20,16 +19,10 @@ from dynode_tpu.models.seip import (
     seip_ode,
     seip_odeparams,
 )
-from dynode_tpu.ops.seip_pallas import (
-    pack_members,
-    seip_solve_reference,
-    unpack_members,
-)
+from dynode_tpu.ops.seip import seip_ensemble_solve, seip_solve_reference
 
 
 def test_selective_save_subsets_full_solve():
-    from dynode_tpu.ops.seip_pallas import seip_ensemble_solve
-
     cfg = seip_config(
         seasonal_vaccination=True,
         solver_params=SolverParams(constant_step_size=0.5),
@@ -47,11 +40,7 @@ def test_selective_save_subsets_full_solve():
 
 
 def test_bf16_saves_round_the_f32_solve():
-    # save_dtype only rounds the MATERIALIZED saves; state math stays f32.
-    # On CPU this exercises the fallback's cast; the kernel's staging path
-    # is gated on TPU by bench_seip's equivalence check.
-    from dynode_tpu.ops.seip_pallas import seip_ensemble_solve
-
+    # save_dtype only rounds the MATERIALIZED saves; state math stays f32
     cfg = seip_config(
         seasonal_vaccination=True,
         solver_params=SolverParams(constant_step_size=0.5),
@@ -70,39 +59,15 @@ def test_bf16_saves_round_the_f32_solve():
     assert float(np.max(np.abs(a16 - a32) / denom)) < 8e-3  # bf16 grid
 
 
-def test_packed_output_is_pack_of_unpacked():
-    # packed=True must return exactly pack_members(default output): the
-    # member-tile layout contract the TPU kernel writes natively (width
-    # consumers reduce over it without the 2x relayout copy)
-    from dynode_tpu.ops.seip_pallas import seip_ensemble_solve
+def test_save_validation():
+    import pytest
 
-    cfg = seip_config(
-        seasonal_vaccination=True,
-        solver_params=SolverParams(constant_step_size=0.5),
-    )
+    cfg = seip_config(solver_params=SolverParams(constant_step_size=0.5))
     p = seip_odeparams(cfg)
     y0 = seip_initial_state(cfg)
-    scales = jnp.linspace(0.9, 1.1, 1024).astype(jnp.float32)
-    plain = seip_ensemble_solve(y0, p, scales, duration=6, save=(0, 3))
-    packed = seip_ensemble_solve(
-        y0, p, scales, duration=6, save=(0, 3), packed=True
-    )
-    assert len(plain) == len(packed) == 2
-    for a, b in zip(plain, packed):
-        assert b.shape == a.shape[:-1] + (8, a.shape[-1] // 8)
-        np.testing.assert_array_equal(
-            np.asarray(pack_members(a)), np.asarray(b)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(unpack_members(b)), np.asarray(a)
-        )
-
-
-def test_pack_unpack_roundtrip():
-    x = jnp.arange(3 * 5 * 2048, dtype=jnp.float32).reshape(3, 5, 2048)
-    np.testing.assert_array_equal(
-        np.asarray(unpack_members(pack_members(x))), np.asarray(x)
-    )
+    for bad in ((), (4,), (-1, 2)):
+        with pytest.raises(ValueError, match="save"):
+            seip_ensemble_solve(y0, p, jnp.ones(2), duration=2, save=bad)
 
 
 def test_reference_matches_generic_engine():

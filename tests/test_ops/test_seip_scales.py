@@ -2,10 +2,8 @@
 
 The production fit samples one transmission scale PER STRAIN
 (examples/seip_fit.py::model), so posterior-predictive forecasting needs
-the kernels to accept (L, B) scale banks -- round 4 extended
-``beta_scales`` from (B,) to (B,)|(L, B) everywhere. On CPU these tests
-exercise the reference fallbacks (the same entry points route to the
-kernels on TPU; bench_seip/probes assert kernel equivalence on-chip).
+the solvers to accept (L, B) scale banks: ``beta_scales`` is (B,) or
+(L, B) everywhere.
 """
 
 import jax
@@ -22,7 +20,7 @@ from dynode_tpu.models.seip import (
     seip_ode,
     seip_odeparams,
 )
-from dynode_tpu.ops.seip_pallas import (
+from dynode_tpu.ops.seip import (
     seip_ensemble_solve,
     seip_ensemble_solve_adaptive,
     seip_solve_reference,

@@ -4,7 +4,7 @@ Usage: python _dist_worker.py <process_id> <port>
 
 Each of the two processes owns 2 virtual CPU devices (4 global). Steps:
 1. initialize_distributed against the shared coordinator,
-2. create_hybrid_mesh with the process boundary as the DCN axis,
+2. create_hybrid_mesh with the process boundary as the host axis,
 3. reduce a globally-sharded array (gloo all-reduce) and check the value,
 4. run a sharded multistrain ensemble solve (the library's flagship
    batch-axis sharding) from host-local shards to a replicated summary,
@@ -52,13 +52,16 @@ assert initialize_distributed(
 assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 4, jax.devices()
 
-mesh = create_hybrid_mesh(("slice", "chain"), num_slices=2)
-assert mesh.shape == {"slice": 2, "chain": 2}, mesh.shape
+mesh = create_hybrid_mesh(("host", "chain"))  # groups by process_index
+assert mesh.shape == {"host": 2, "chain": 2}, mesh.shape
+assert all(
+    d.process_index == h for h, row in enumerate(mesh.devices) for d in row
+)
 
 # --- 1. global reduction over a process-spanning sharded array ------------
 local = np.arange(8.0).reshape(4, 2)[2 * pid : 2 * pid + 2]
 xg = multihost_utils.host_local_array_to_global_array(
-    local, mesh, P(("slice", "chain"))
+    local, mesh, P(("host", "chain"))
 )
 total = jax.jit(lambda a: jnp.sum(a * a))(xg)
 assert abs(float(total) - 140.0) < 1e-9, float(total)
@@ -73,7 +76,7 @@ sp = cfg.parameters.solver_params
 scales_global = np.linspace(0.9, 1.1, B)
 scales_local = scales_global[pid * (B // 2) : (pid + 1) * (B // 2)]
 sg = multihost_utils.host_local_array_to_global_array(
-    scales_local, mesh, P(("slice", "chain"))
+    scales_local, mesh, P(("host", "chain"))
 )
 
 

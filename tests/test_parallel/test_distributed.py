@@ -1,10 +1,11 @@
 """Multi-host scaffolding: single-host no-op + hybrid-mesh layout.
 
-Real DCN behavior needs a pod; what CAN be pinned on the 8-virtual-device
-CPU harness is the contract: ``initialize_distributed`` no-ops cleanly on
-one host, and ``create_hybrid_mesh`` produces a correctly-shaped named
-mesh (degenerate single-slice case, and the slice-major device order when
-we force a fake 2-slice split) that actually shards a program.
+Real cross-host behavior needs several hosts; what CAN be pinned on the
+8-virtual-device CPU harness is the contract: ``initialize_distributed``
+no-ops cleanly on one host, and ``create_hybrid_mesh`` produces a
+correctly-shaped named mesh (degenerate single-host case, and the
+host-major device order when we force a 2-host split) that actually
+shards a program.
 """
 
 import jax
@@ -24,14 +25,14 @@ def test_initialize_distributed_single_host_noop():
 
 
 def test_hybrid_mesh_single_slice_degenerates():
-    mesh = create_hybrid_mesh(("slice", "chain"))
-    assert mesh.axis_names == ("slice", "chain")
+    mesh = create_hybrid_mesh(("host", "chain"))
+    assert mesh.axis_names == ("host", "chain")
     assert mesh.devices.shape == (1, len(jax.devices()))
 
 
 def test_hybrid_mesh_runs_a_sharded_program():
     n = len(jax.devices())
-    mesh = create_hybrid_mesh(("slice", "chain"))
+    mesh = create_hybrid_mesh(("host", "chain"))
     x = jnp.arange(4 * n, dtype=jnp.float32).reshape(4 * n, 1)
     xs = jax.device_put(x, shard_batch(mesh, "chain"))
     y = jax.jit(lambda a: (a * 2).sum(axis=1))(xs)
@@ -39,14 +40,14 @@ def test_hybrid_mesh_runs_a_sharded_program():
 
 
 def test_hybrid_mesh_forced_two_slice_split():
-    # fake a 2-slice topology on the virtual-device harness: the DCN axis
-    # must become the mesh's leading blocks (slice-major device order)
+    # stand in for 2 hosts on the virtual-device harness: the host axis
+    # must become the mesh's leading blocks (host-major device order)
     devs = jax.devices()
     if len(devs) < 4:
         import pytest
 
         pytest.skip("needs >= 4 devices")
-    mesh = create_hybrid_mesh(("slice", "chain"), num_slices=2, devices=devs)
+    mesh = create_hybrid_mesh(("host", "chain"), num_hosts=2, devices=devs)
     assert mesh.devices.shape == (2, len(devs) // 2)
     flat = list(mesh.devices.ravel())
     assert len(set(flat)) == len(devs)

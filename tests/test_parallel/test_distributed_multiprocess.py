@@ -3,7 +3,7 @@
 tests/test_parallel/test_distributed.py exercises create_hybrid_mesh's
 layout logic on a single process; this module goes the rest of the way:
 two actual processes coordinate through jax.distributed, build the hybrid
-mesh with the process boundary as the DCN axis, all-reduce a globally
+mesh with the process boundary as the host axis, all-reduce a globally
 sharded array, and run a sharded multistrain ensemble solve whose batch
 axis spans both processes — the framework's multi-host claim executed,
 not just compiled (SURVEY.md section 2.8 item 3).

@@ -1,9 +1,10 @@
 """Multi-device shard_map wrappers for the whole-solve kernels.
 
-On the 8-virtual-CPU-device mesh the kernels fall back to their pure-lax
-references, so these tests validate exactly the partitioning logic
-(in/out specs, member-axis splits, stats concatenation) that the TPU path
-uses -- the same contract __graft_entry__.dryrun_multichip exercises.
+On the 8-virtual-CPU-device mesh the entry points take their lax route,
+so most of these tests validate the partitioning logic (in/out specs,
+member-axis splits, stats concatenation) that the GPU path uses; the
+interpret-mode cases run the Pallas kernel itself inside ``shard_map`` --
+the contract ``chip_smoke.py --four`` checks on four cards.
 """
 
 import jax
@@ -104,7 +105,7 @@ def test_seip_sharded_bit_identical():
         seip_initial_state,
         seip_odeparams,
     )
-    from dynode_tpu.ops.seip_pallas import seip_ensemble_solve
+    from dynode_tpu.ops.seip import seip_ensemble_solve
 
     mesh = create_mesh(("ensemble",))
     cfg = seip_config(solver_params=SolverParams(constant_step_size=0.5))
@@ -126,7 +127,7 @@ def test_seip_adaptive_sharded_matches_tolerance():
         seip_odeparams,
     )
     from dynode_tpu.ops import seip_ensemble_solve_adaptive_sharded
-    from dynode_tpu.ops.seip_pallas import seip_ensemble_solve_adaptive
+    from dynode_tpu.ops.seip import seip_ensemble_solve_adaptive
 
     mesh = create_mesh(("ensemble",))
     cfg = seip_config(solver_params=SolverParams(constant_step_size=0.5))
@@ -149,12 +150,29 @@ def test_seip_adaptive_sharded_matches_tolerance():
     )
 
 
-def test_seip_sharded_rejects_packed():
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_kernel_sharded_interpret_bit_identical(adaptive):
+    """The Pallas kernel inside shard_map equals the single-device kernel
+    when the block divides the per-device batch (adaptive: the device
+    split then preserves every block's dt chain)."""
     mesh = create_mesh(("ensemble",))
-    with pytest.raises(ValueError, match="packed"):
-        seip_ensemble_solve_sharded(
-            None, None, jnp.zeros(16), mesh=mesh, duration=1, packed=True
+    rhs, y0, p = _sir_rows(256)
+    if adaptive:
+        solve, solve_sharded = (
+            ensemble_solve_kernel_adaptive,
+            ensemble_solve_kernel_adaptive_sharded,
         )
+        kw = dict(duration=6.0, rtol=1e-4, atol=1e-6)
+    else:
+        solve, solve_sharded = (
+            ensemble_solve_kernel, ensemble_solve_kernel_sharded,
+        )
+        kw = dict(duration=6.0, dt=0.5)
+    kw.update(block_b=32, interpret=True)
+    single = solve(rhs, y0, p, **kw)
+    shard = solve_sharded(rhs, y0, p, mesh=mesh, **kw)
+    for a, b in zip(jax.tree.leaves(single), jax.tree.leaves(shard)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_result_is_actually_sharded():

@@ -5,7 +5,7 @@ batch-last RHS variants (models/multistrain.py, models/seip.py) do by hand,
 and ``simulate_ensemble(layout="lane_major")`` must agree member-for-member
 with the batch-leading layout — the framework contract is that USER-authored
 RHS functions (SURVEY.md §1: the framework never owns the ODE equations) get
-the fast TPU layout without hand-porting.
+the batch-last layout without hand-porting.
 """
 
 import jax

@@ -31,8 +31,7 @@ MODULES = [
     "dynode_tpu.models.multistrain",
     "dynode_tpu.models.seip",
     "dynode_tpu.ops.generic_pallas",
-    "dynode_tpu.ops.multistrain_pallas",
-    "dynode_tpu.ops.seip_pallas",
+    "dynode_tpu.ops.seip",
     "dynode_tpu.ops.sharded",
     "dynode_tpu.parallel",
     "dynode_tpu.utils",
